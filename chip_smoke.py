@@ -3,21 +3,35 @@
 
     python3 chip_smoke.py [--seed 0] [--out results.json] [--profile DIR]
 
-Builds the port's four CUDA kernels from ``libtsd_tpu_torch/csrc`` into
-``build/libtsd_tpu_torch/``, checks each kernel against its plain PyTorch
-version on the card, drives the main path at full size (256 channels x
-2^22 int16 samples: 256-tap lowpass FIR -> 4096-point periodogram, fused,
-composed and streamed, plus a Welch PSD), times every kernel beside its
-plain version with CUDA events, and checks that the main path launched
-every kernel.  Any failure raises and exits non-zero.  Without a CUDA
-device it exits 1 and prints no result.  ``--profile DIR`` adds a
-``torch.profiler`` window over the fused and the composed main path
-(device busy time, idle share, top kernels; chrome traces into DIR).
+Builds the port's CUDA kernels from ``libtsd_tpu_torch/csrc`` into
+``build/libtsd_tpu_torch/`` and drives two paths at full size:
+
+* the spectral main path (256 channels x 2^22 int16 samples: 256-tap
+  lowpass FIR -> 4096-point periodogram, fused, composed and streamed, plus
+  a Welch PSD), with kernels #1-#4 each checked against its plain PyTorch
+  version;
+* the QAM-16 receive path: 4096 channels made on the card by the port's
+  modulator (RRC 0.25, osf 4, 8 fractional delays, independent noise),
+  demodulated by ``DecisionDemodSB`` over 8 steps of 8192 samples with
+  the ``"cuda"`` engine (kernel #5) and the ``"cuda-fused"`` engine
+  (kernel #6); tail EVM on every channel, bit errors after warm-up on
+  sampled channels, each kernel against its plain version.
+
+Every kernel is timed beside its plain version (CUDA events, median of 5
+after a warm-up), beside the least time the card could take for the same
+work and, where one PyTorch call computes the same function, that call's
+time.  Each path runs with the launch counts set to 0 just before it and
+read just after; a kernel of a path that was not launched fails the run.
+Any failure raises and exits non-zero.  Without a CUDA device it exits 1
+and prints no result.  ``--profile DIR`` adds ``torch.profiler`` windows
+over the fused and composed main path and over one step of each QAM
+engine (device busy time, idle share, top kernels; chrome traces into
+DIR).
 
 Output, in order: versions and the card (``nvidia-smi`` name, power
-limit), build time, one line per check with its tolerance, timings in
-Msamples/s, launch counts, a ``{"kernels": [...]}`` JSON line, and as the
-last line ``{"ok": true, "device": {...}}``.
+limit), build time, one line per check with its tolerance, timings, launch
+counts, a ``{"kernels": [...]}`` JSON line, and as the last line
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -44,6 +58,21 @@ TOL_TIER = 1e-2                    # across tiers that round taps or x to bf16
 FLOOR = 1e-6
 TOL_BIN = 1e-3
 
+# the QAM-16 receive path (examples/qam_serving.py at full width)
+C_QAM, N_QAM, STEPS_QAM = 4096, 8192, 8
+QAM_BASES = 8          # base streams, fractional delays 0.3 + 0.1 b
+QAM_NOISE = 0.02       # noise std per real dimension
+WARMUP_SYM = 600       # symbols before the bit-error count starts
+TOL_EVM = 0.2          # tail EVM, every channel (qam_serving.py:75)
+# kernel vs plain, the JAX gates of tests/test_demod_sb.py:174-178
+TOL_SYM = 1e-3         # max |dsymbol| on valid symbols
+TOL_BITS = 1e-4        # bit mismatch share
+
+# the card's published peaks (NVIDIA's H100 SXM data sheet): HBM bytes/s and
+# fp32 FLOP/s outside the tensor cores
+PEAK_BYTES = 3.35e12
+PEAK_FLOPS = 67e12
+
 KERNELS = {   # wrapper name -> (source, the Pallas call it replaces)
     "fir": ("libtsd_tpu_torch/csrc/fir.cu",
             "libtsd_tpu/ops/pallas/fir.py:82"),
@@ -53,7 +82,27 @@ KERNELS = {   # wrapper name -> (source, the Pallas call it replaces)
                             "libtsd_tpu/ops/pallas/chain.py:337"),
     "fft_pow2": ("libtsd_tpu_torch/csrc/fft.cu",
                  "libtsd_tpu/ops/pallas/fft.py:152"),
+    "demod_sb": ("libtsd_tpu_torch/csrc/demod_sb.cu",
+                 "libtsd_tpu/ops/pallas/demod_sb.py:338"),
+    "demod_sb_fused": ("libtsd_tpu_torch/csrc/demod_sb.cu",
+                       "libtsd_tpu/ops/pallas/demod_sb.py:561"),
 }
+PATH_KERNELS = {"main": ("fir", "periodogram4096", "fir_periodogram4096",
+                         "fft_pow2"),
+                "qam": ("demod_sb", "demod_sb_fused")}
+
+
+def bound(nbytes: float, flops: float) -> tuple[float, str]:
+    """The least time the card could take for work that moves ``nbytes``
+    (each input read once, each output written once) and does ``flops``:
+    (ms, "bytes" or "operations")."""
+    tb, tf = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def fft_flops(n: int) -> float:
+    """5 n log2 n, the usual count of a complex radix-2 FFT."""
+    return 5.0 * n * np.log2(n)
 
 
 def rel_err(a: torch.Tensor, b: torch.Tensor) -> tuple[float, float]:
@@ -341,6 +390,226 @@ def timings(h, mp, dev) -> dict:
     return t
 
 
+def main_bounds_and_library(h, mp, dev) -> dict:
+    """Each main-path kernel's bound at the shapes timed above, and the
+    time of the one PyTorch call that computes the same transform:
+    ``F.conv1d`` for #1 (cuDNN TF32 off, so fp32 as the kernel),
+    ``torch.fft.rfft`` of the same 4096-sample frames for #2 (the
+    transform only, without |X|^2 and the sum over frames), ``torch.fft.fft``
+    for #4; #3 has none.  Flops: 2 per tap and sample for a FIR, 5 n log2 n
+    per complex n-point FFT, 4 per bin for |X|^2 and the accumulation."""
+    import torch.nn.functional as F
+    y = mp["y"]
+    K, frames = len(h), C_MAIN * N_MAIN // NFFT
+    spec = frames * (fft_flops(NFFT) + 4 * NFFT)
+    nseg = len(range(0, N_MAIN - NFFT, NFFT // 2))
+    out = {
+        "fir": bound(8 * N_MAIN + 4 * K, 2 * K * N_MAIN),
+        "periodogram4096": bound(4 * C_MAIN * N_MAIN + 4 * C_MAIN * NFFT,
+                                 spec),
+        "fir_periodogram4096": bound(
+            2 * C_MAIN * N_MAIN + 4 * C_MAIN * NFFT + 4 * K,
+            2 * K * C_MAIN * N_MAIN + spec),
+        "fft_pow2": bound(16 * 4 * nseg * NFFT,
+                          4 * nseg * fft_flops(NFFT)),
+    }
+    x1 = y[0].contiguous()[None, None]
+    w = torch.as_tensor(np.asarray(h, np.float32)[::-1].copy(),
+                        device=dev)[None, None]
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        lib = {"fir": time_ms(lambda: F.conv1d(x1, w, padding=K - 1))}
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    lib["periodogram4096"] = time_ms(
+        lambda: torch.fft.rfft(y.view(C_MAIN, -1, NFFT)))
+    torch.cuda.empty_cache()
+    z = torch.randn(4 * nseg, NFFT, device=dev, dtype=torch.complex64)
+    lib["fft_pow2"] = time_ms(lambda: torch.fft.fft(z))
+    lib["fir_periodogram4096"] = None
+    for name, (bms, by) in out.items():
+        lt = lib[name]
+        print(f"bound {name}: {bms:.4f} ms by {by}; library call "
+              + ("none" if lt is None else f"{lt:.4f} ms"))
+    return {k: (v[0], v[1], lib[k]) for k, v in out.items()}
+
+
+# ------------------------------------------------------- QAM-16 receive
+
+
+def qam_signal(gen, dev):
+    """C_QAM channels of STEPS_QAM * N_QAM samples, made on the card: one
+    QAM-16 stream from the port's modulator (RRC 0.25, osf 4), delayed by
+    QAM_BASES fractional delays, channel c carrying delay c % QAM_BASES,
+    plus independent noise (examples/qam_serving.py:45-56)."""
+    from libtsd_tpu_torch.models import waveform as W
+    from libtsd_tpu_torch.models.bitstream import randbits
+    from libtsd_tpu_torch.models.modulator import ModConfig, Modulator
+    from libtsd_tpu_torch.ops.fft import delay_signal
+    wf = W.wf_qam(16, W.PulseShape.rcs(0.25), device=dev)
+    mod = Modulator.create(ModConfig(wf=wf, fe=4.0, fsymb=1.0), device=dev)
+    total = STEPS_QAM * N_QAM
+    bits = randbits(gen, 4 * (total // 4 + 64))
+    x, _ = mod.modulate(bits)
+    base = torch.stack([delay_signal(x, 0.3 + 0.1 * b)[:total]
+                        for b in range(QAM_BASES)])
+    xs = base.repeat(C_QAM // QAM_BASES, 1)
+    w = torch.randn(2, C_QAM, total, generator=gen, device=dev) * QAM_NOISE
+    xs = xs + torch.complex(w[0], w[1])
+    torch.cuda.synchronize()
+    return wf, bits, xs
+
+
+def qam_path(wf, x, dev) -> dict:
+    """The QAM path as a user drives it: DecisionDemodSB.create, init_for,
+    STEPS_QAM steps of N_QAM samples with the state carried, on each
+    engine.  Keeps the symbols, masks and the state before each step."""
+    from libtsd_tpu_torch.models.demod_sb import DecisionDemodSB, SBDemodConfig
+    out = {}
+    for eng in ("cuda", "cuda-fused"):
+        dd = DecisionDemodSB.create(wf, SBDemodConfig(osf=4, S=16,
+                                                      engine=eng),
+                                    device=dev)
+        st = dd.init_for(x[:, :N_QAM])
+        states, syms, valid = [], [], []
+        for k in range(STEPS_QAM):
+            states.append(st)
+            st, (_, y, v, _) = dd.step(st, x[:, k * N_QAM:(k + 1) * N_QAM])
+            syms.append(y)
+            valid.append(v)
+        out[eng] = dict(dd=dd, states=states, syms=torch.cat(syms, 1),
+                        valid=torch.cat(valid, 1))
+    torch.cuda.synchronize()
+    return out
+
+
+def _kernel_args(eng, dd, st, xb):
+    """Kernel #5's or #6's inputs for one step, as the engine builds them."""
+    from libtsd_tpu_torch.models.demod_sb import pack_state
+    from libtsd_tpu_torch.ops.kernels import demod_sb as KSB
+    p = dd.loop_params(xb.shape[-1])
+    if eng == "cuda":
+        _, zp = dd.matched_zp(st, xb)
+        return (KSB.demod_sb, KSB.demod_sb_plain,
+                (zp, pack_state(st), dd.wf.symbols, p))
+    return (KSB.demod_sb_fused, KSB.demod_sb_fused_plain,
+            (xb.contiguous(), st["xtail"], pack_state(st), dd.wf.symbols,
+             dd.h_mf, p, dd.rms_ref))
+
+
+def qam_checks(wf, bits, x, qp) -> dict:
+    """The QAM path's checks on each engine: tail EVM < TOL_EVM on every
+    channel; zero bit errors after WARMUP_SYM symbols on sampled channels
+    (cmp_bits_rot resolves the 90-degree ambiguity of the blind loop);
+    each kernel against its plain version on the same full-width inputs
+    (the first step and one from the middle).  Returns the largest
+    |dsymbol| per kernel."""
+    from libtsd_tpu_torch.models import ber
+    from libtsd_tpu_torch.models.waveform import symbol_indices_to_bits
+    err = {}
+    sym = wf.symbols
+    for eng, r in qp.items():
+        syms, valid = r["syms"], r["valid"]
+        if syms.shape != (C_QAM, STEPS_QAM * N_QAM // 4):
+            raise AssertionError(f"qam {eng}: symbols {tuple(syms.shape)}")
+        if not torch.isfinite(torch.view_as_real(syms)).all():
+            raise AssertionError(f"qam {eng}: non-finite symbols")
+        tail = slice(syms.shape[1] - N_QAM // 4, None)     # the last step
+        t, v = syms[:, tail], valid[:, tail]
+        d2 = ((t[..., None] - sym).abs() ** 2).min(-1).values
+        nv = v.sum(1)
+        evm = torch.sqrt((d2 * v).sum(1) / nv.clamp(min=1)
+                         / (sym.abs() ** 2).mean())
+        ok = bool((nv > 0).all()) and evm.max().item() < TOL_EVM
+        print(f"check qam {eng}: tail EVM mean {evm.mean().item():.4f} max "
+              f"{evm.max().item():.4f} over {C_QAM} channels, tol {TOL_EVM}"
+              f", valid share {valid.float().mean().item():.4f} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"qam {eng}: tail EVM")
+        nerr, nbits = 0, 0
+        for i in range(16):
+            c = (i * (C_QAM // 16) + i % QAM_BASES) % C_QAM
+            sy = syms[c][valid[c]]
+            _, e, lag = ber.cmp_bits_rot(bits[4 * WARMUP_SYM:],
+                                         sy[WARMUP_SYM:], wf, max_lag=64)
+            nerr += e
+            nbits += 4 * (len(sy) - WARMUP_SYM)
+        print(f"check qam {eng}: {nerr} bit errors in {nbits} bits after "
+              f"{WARMUP_SYM} warm-up symbols, 16 channels over all "
+              f"{QAM_BASES} delays {'ok' if nerr == 0 else 'FAIL'}")
+        if nerr:
+            raise AssertionError(f"qam {eng}: bit errors")
+        name = "demod_sb" if eng == "cuda" else "demod_sb_fused"
+        err[name] = 0.0
+        for k in (0, STEPS_QAM // 2):
+            kf, pf, args = _kernel_args(eng, r["dd"], r["states"][k],
+                                        x[:, k * N_QAM:(k + 1) * N_QAM])
+            yk, sk, vk, stk = kf(*args)
+            yp, sp, vp, stp = pf(*args)
+            same = torch.equal(vk, vp)
+            dy = (yk - yp).abs()
+            dmax = dy[vp].max().item() if vp.any() else 0.0
+            mism = (symbol_indices_to_bits(sk, 4)
+                    != symbol_indices_to_bits(sp, 4)).float().mean().item()
+            dst = (stk - stp).abs().max().item()
+            ok = same and dmax < TOL_SYM and mism < TOL_BITS
+            print(f"check qam {name} (#{5 if eng == 'cuda' else 6}) vs plain,"
+                  f" {C_QAM} x {N_QAM} step {k}: valid masks equal {same}, "
+                  f"max|dsym| {dmax:.3e} tol {TOL_SYM:g}, bit mismatch "
+                  f"{mism:.3e} tol {TOL_BITS:g}, max|dstate| {dst:.3e} "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{name} vs plain")
+            err[name] = max(err[name], dy.max().item())
+            del args
+            torch.cuda.empty_cache()
+    return err
+
+
+def qam_timings(x, qp) -> dict:
+    """Each engine's step, each kernel alone and its plain version (CUDA
+    events, median of 5 after a warm-up) on the first block, and each
+    kernel's bound.  Flops per symbol: 8 K for the two K-tap windows, 5 M
+    for the decisions, ~60 for rotation, TED, phase and AGC errors and
+    the lane sums; the fused kernel adds 4 Kmf + 3 per input sample for
+    the matched filter and its power.  Bytes: the kernel's inputs once
+    and 13 per symbol out (y 8, sidx 4, valid 1)."""
+    out = {}
+    xb = x[:, :N_QAM]
+    for eng, r in qp.items():
+        dd, st = r["dd"], r["states"][0]
+        kf, pf, args = _kernel_args(eng, dd, st, xb)
+        ms_step = time_ms(lambda: dd.step(st, xb))
+        ms_k = time_ms(lambda: kf(*args))
+        ms_p = time_ms(lambda: pf(*args))
+        p = args[-1] if eng == "cuda" else args[5]
+        nsym = C_QAM * p.nsb * p.S
+        M, C = dd.wf.symbols.shape[0], C_QAM
+        out_b = 13 * nsym + 2 * 36 * C + 8 * M
+        loop_f = nsym * (8 * p.K + 5 * M + 60)
+        if eng == "cuda":
+            nb = 8 * args[0].numel() + out_b
+            nf = loop_f
+            name = "demod_sb"
+        else:
+            kmf = dd.h_mf.shape[0]
+            nb = 8 * (xb.numel() + args[1].numel()) + 4 * kmf + out_b
+            nf = loop_f + C * N_QAM * (4 * kmf + 3)
+            name = "demod_sb_fused"
+        bms, by = bound(nb, nf)
+        rate = C_QAM * N_QAM / ms_step / 1e3
+        print(f"time qam {eng}: step {ms_step:.4f} ms ({rate:.1f} "
+              f"Msamples/s aggregate, {C_QAM} x {N_QAM}); kernel {name} "
+              f"{ms_k:.4f} ms, plain {ms_p:.4f} ms, bound {bms:.4f} ms by "
+              f"{by}; library call none")
+        out[name] = (ms_k, ms_p, bms, by, None, ms_step, rate)
+        del args
+        torch.cuda.empty_cache()
+    return out
+
+
 def profile(mp, out_dir: str) -> None:
     """Optional phase: torch.profiler over 5 back-to-back calls of the
     fused int16/2 chain and of the composed path (Fir.step -> #2), after a
@@ -348,25 +617,29 @@ def profile(mp, out_dir: str) -> None:
     busy time (union of kernel, copy and fill intervals), its idle share of
     the span from the first to the last device interval, and the kernels
     that take most of the busy time."""
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as tprofile
-
     from libtsd_tpu_torch.ops.kernels.chain import fir_periodogram4096
     from libtsd_tpu_torch.ops.kernels.periodogram import periodogram4096_acc
     x, G, fir = mp["x"], mp["G"], mp["fir"]
-    windows = {
+    profile_windows({
         "fused_int16_2": lambda: fir_periodogram4096(
             x, G, precision="int16", fir_passes=2),
         "composed": lambda: periodogram4096_acc(
             fir.step(fir.init_for(x), x)[1]),
-    }
+    }, out_dir)
+
+
+def profile_windows(windows: dict, out_dir: str, calls: int = 5) -> None:
+    """torch.profiler over ``calls`` back-to-back calls of each window
+    after a warm-up; prints device busy time, idle share and top kernels."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
     os.makedirs(out_dir, exist_ok=True)
     for name, fn in windows.items():
         fn()
         torch.cuda.synchronize()
         with tprofile(activities=[ProfilerActivity.CPU,
                                   ProfilerActivity.CUDA]) as prof:
-            for _ in range(5):
+            for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
         path = os.path.join(out_dir, f"trace_{name}.json")
@@ -383,7 +656,8 @@ def profile(mp, out_dir: str) -> None:
             end = max(end, t1)
             by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
         span = end - min(e["ts"] for e in ev)
-        print(f"profile {name}: 5 calls, device busy {busy / 1e3:.3f} ms of "
+        print(f"profile {name}: {calls} calls, device busy "
+              f"{busy / 1e3:.3f} ms of "
               f"{span / 1e3:.3f} ms span, idle {100 * (1 - busy / span):.2f} %"
               f" ({path})")
         for n, d in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
@@ -396,8 +670,9 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", help="also write the results as JSON here")
     ap.add_argument("--profile", metavar="DIR",
-                    help="also profile the fused and composed main path; "
-                         "chrome traces go into DIR")
+                    help="also profile the fused and composed main path "
+                         "and one step of each QAM engine; chrome traces go "
+                         "into DIR")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
@@ -424,29 +699,56 @@ def main() -> int:
 
     kernels.reset_launches()
     mp = main_path(h, gen, dev)
-    launches = kernels.launches()
+    launches = {k: v for k, v in kernels.launches().items()
+                if k in PATH_KERNELS["main"]}
     for k, d in main_path_checks(mp).items():
         errs[k] = max(errs[k], d)
     t = timings(h, mp, dev)
+    extra = main_bounds_and_library(h, mp, dev)
     if args.profile:
         profile(mp, args.profile)
-    print("launches (main path): " + json.dumps(launches))
+    del mp
+    torch.cuda.empty_cache()
+
+    # the QAM-16 receive path (kernels #5 and #6)
+    wf, bits, xq = qam_signal(gen, dev)
+    kernels.reset_launches()
+    qp = qam_path(wf, xq, dev)
+    launches.update({k: v for k, v in kernels.launches().items()
+                     if k in PATH_KERNELS["qam"]})
+    errs.update(qam_checks(wf, bits, xq, qp))
+    tq = qam_timings(xq, qp)
+    if args.profile:
+        xb = xq[:, :N_QAM]
+        profile_windows({
+            f"qam_{eng}": (lambda r=r: r["dd"].step(r["states"][0], xb))
+            for eng, r in qp.items()}, args.profile, calls=3)
+
+    print("launches (each path): " + json.dumps(launches))
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
-        raise AssertionError(f"main path launched no {missing}")
+        raise AssertionError(f"a path launched no {missing}")
     headline = {"fir_periodogram4096": "fir_periodogram4096 int16/2"}
     rows = []
     for name, (src, rep) in KERNELS.items():
-        k, p, _ = t[headline.get(name, name)]
+        if name in tq:
+            k, p, bms, by, lib, _, _ = tq[name]
+        else:
+            k, p, _ = t[headline.get(name, name)]
+            bms, by, lib = extra[name]
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": rep, "launches": launches[name],
-                     "max_abs_err": errs[name], "ms": k, "plain_ms": p})
+                     "max_abs_err": errs[name], "ms": k, "plain_ms": p,
+                     "bound_ms": bms, "bound_by": by, "library_ms": lib})
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": card, "kernels": rows, "max_abs_err": errs,
                        "timings_ms": {n: {"kernel": k, "plain": p,
                                           "samples": s}
-                                      for n, (k, p, s) in t.items()}},
+                                      for n, (k, p, s) in t.items()},
+                       "qam_step": {n: {"step_ms": v[5],
+                                        "msamples_per_s": v[6]}
+                                    for n, v in tq.items()}},
                       f, indent=1)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

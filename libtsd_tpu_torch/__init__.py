@@ -6,9 +6,12 @@ This package imports ``torch`` and never ``jax`` or ``libtsd_tpu``.
 
 Layout (the JAX package's, with ``ops/kernels/`` for ``ops/pallas/``):
 
-* ``libtsd_tpu_torch.ops``   -- window, FIR design, FIR runtime, FFT/PSD,
-  and the kernels.
-* ``libtsd_tpu_torch.utils`` -- conversion of JAX-package parameters.
+* ``libtsd_tpu_torch.ops``    -- window, FIR and IIR design, FIR runtime,
+  FFT/PSD, resampling pieces, and the kernels.
+* ``libtsd_tpu_torch.models`` -- waveforms, modulator, carrier and clock
+  recovery, the decision-directed demodulators, BER tooling.
+* ``libtsd_tpu_torch.utils``  -- conversion of JAX-package parameters and
+  states.
 """
 
 from . import config

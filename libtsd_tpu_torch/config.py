@@ -11,6 +11,11 @@ only at that boundary (``utils.convert``, the comparison tests).
 The choice between a hand-written CUDA kernel and its plain PyTorch version
 is made per call by the device of the tensor (see ``ops/kernels``), so there
 is no global "use kernels" switch.
+
+Entry points that make tensors from nothing (``create()``, grids, random
+bits) put them on the card unless the caller names another device
+(``device="cuda"`` by default); :func:`device` raises when that card is
+absent, so nothing carries on on the CPU by accident.
 """
 from __future__ import annotations
 
@@ -19,6 +24,17 @@ import torch
 
 real_dtype = torch.float32
 complex_dtype = torch.complex64
+
+
+def device(dev="cuda") -> torch.device:
+    """Resolve a caller's device.  A CUDA device without a card raises
+    instead of building on the CPU."""
+    dev = torch.device(dev)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on the card by default; pass "
+            "device='cpu' to build on the CPU (plain PyTorch versions)")
+    return dev
 
 
 def to_ri(x) -> torch.Tensor:

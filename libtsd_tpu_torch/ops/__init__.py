@@ -1,1 +1,2 @@
-from . import fft, filter_rt, fir_design, kernels, psd, window  # noqa: F401
+from . import (fft, filter_rt, fir_design, iir_design, kernels,  # noqa: F401
+               psd, resample, signal, window)

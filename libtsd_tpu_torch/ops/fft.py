@@ -11,7 +11,7 @@ kernel wrapper (which takes its plain version for a CPU tensor),
 ``engine="torch"`` forces ``torch.fft``.
 
 Not ported yet: ``czt``, ``goertzel``, ``goertzel_stream``, ``hadamard``,
-``wht``, ``delay_signal``, ``resample_freq``, ``force_csym``,
+``wht``, ``resample_freq``, ``force_csym``,
 ``ola_complexity(_optimize)`` (see ROADMAP.md).
 """
 from __future__ import annotations
@@ -22,11 +22,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..config import complex_dtype, real_dtype
+from ..config import complex_dtype, device as _device, real_dtype
 from .kernels.fft import NMAX, NMIN, FftPow2
 
 __all__ = ["fft", "ifft", "rfft", "irfft", "fftshift", "ifftshift",
-           "fft_freqs", "next_pow2"]
+           "fft_freqs", "next_pow2", "delay_signal"]
 
 ENGINES = ("auto", "kernel", "torch")
 
@@ -102,12 +102,41 @@ def ifftshift(x: torch.Tensor, axes=None) -> torch.Tensor:
 
 
 def fft_freqs(n: int, fs: float = 1.0, shifted: bool = True,
-              device=None) -> torch.Tensor:
+              device="cuda") -> torch.Tensor:
     """Bin frequencies; ``shifted`` returns them increasing in
     [-fs/2, fs/2)."""
-    f = torch.fft.fftfreq(n, d=1.0 / fs, device=device).to(real_dtype)
+    f = torch.fft.fftfreq(n, d=1.0 / fs, device=_device(device)
+                          ).to(real_dtype)
     return torch.fft.fftshift(f) if shifted else f
 
 
 def next_pow2(n: int) -> int:
     return 1 << (int(n) - 1).bit_length()
+
+
+def delay_signal(x: torch.Tensor, delay) -> torch.Tensor:
+    """Delay a signal (last axis) by a possibly fractional number of
+    samples (parity: tsd::fourier::délais, fourier.cc:608-707).  An integer
+    delay shifts with zero fill; a fractional one multiplies the spectrum
+    of a 2x zero-padded block by a phase ramp (``torch.fft``, as the JAX
+    package uses ``jnp.fft``).  ``delay`` may be a tensor."""
+    n = x.shape[-1]
+    if not isinstance(delay, torch.Tensor) and float(delay) == int(delay):
+        d = int(delay)
+        if d == 0:
+            return x
+        z = torch.zeros_like(x[..., :abs(d)])
+        if d > 0:
+            return torch.cat([z, x[..., :-d]], dim=-1)
+        return torch.cat([x[..., -d:], z], dim=-1)
+    N = 2 * n
+    pad_lo = n // 2
+    is_real = not x.is_complex()
+    X = torch.fft.fft(F.pad(x, (pad_lo, N - n - pad_lo)), dim=-1)
+    kf = torch.fft.fftfreq(N, device=x.device).to(real_dtype)
+    rot = torch.exp(-2j * np.pi * kf * delay).to(complex_dtype)
+    if is_real:
+        # keep the Nyquist bin real so that the output stays real
+        rot[N // 2] = torch.cos(2 * np.pi * kf[N // 2] * delay)
+    y = torch.fft.ifft(X * rot, dim=-1)[..., pad_lo:pad_lo + n]
+    return y.real if is_real else y

@@ -20,8 +20,8 @@ Precision tiers of every matmul (``_mm_prec``):
 bf16 products are formed exactly in fp32 (bf16 operands rounded, then
 multiplied as fp32) and accumulated in fp32, as the MXU does.
 
-Not ported yet: ``DelayLine``, ``Decimator``, ``FirDecim``, ``filtfilt``,
-the recursive blocks and ``OlaFft`` (see ROADMAP.md).
+Not ported yet: ``filtfilt``, the recursive blocks and ``OlaFft`` (see
+ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -32,10 +32,10 @@ import torch
 import torch.nn.functional as F
 
 from ..block import Block
-from ..config import complex_dtype, real_dtype
+from ..config import complex_dtype, device as _device, real_dtype
 
 __all__ = ["fir_toeplitz_mats", "fir_filter", "fir_filter_valid", "Fir",
-           "filter_signal"]
+           "DelayLine", "Decimator", "FirDecim", "filter_signal"]
 
 _L = 128  # frame size
 PRECISIONS = ("highest", "split", "bf16")
@@ -171,7 +171,9 @@ class Fir(Block):
         self.precision = precision
 
     @classmethod
-    def create(cls, h, precision: str = "highest", device=None) -> "Fir":
+    def create(cls, h, precision: str = "highest",
+               device="cuda") -> "Fir":
+        device = _device(device)
         h = np.ascontiguousarray(h)
         cplx = bool(np.iscomplexobj(h))
         G = fir_toeplitz_mats(torch.as_tensor(
@@ -222,6 +224,126 @@ class Fir(Block):
         # NOT [-(K-1):]: for K=1 that slice is [-0:] = everything
         new_state = xx[..., xx.shape[-1] - (self.K - 1):]
         return new_state, y
+
+
+class DelayLine(Block):
+    """Integer delay of d samples (parity: LigneARetard,
+    filtre-rt.cc:13-46).  State: the last d input samples."""
+
+    def __init__(self, d: int, dtype=real_dtype, device="cuda"):
+        super().__init__()
+        self.d = int(d)
+        self.dtype = dtype
+        self.device = _device(device)
+
+    def init(self):
+        return torch.zeros((self.d,), dtype=self.dtype, device=self.device)
+
+    @property
+    def delay(self) -> float:
+        return float(self.d)
+
+    def step(self, state, x):
+        if self.d == 0:
+            return state, x
+        xx = torch.cat([state, x], dim=-1)
+        return xx[..., -self.d:], xx[..., :x.shape[-1]]
+
+
+class Decimator(Block):
+    """Keep 1 sample in R with the phase carried across blocks (parity:
+    Decimateur, filtre-rt.cc:120-170).  The block length must be a multiple
+    of R, so the phase never changes and the output shape is fixed."""
+
+    def __init__(self, R: int):
+        super().__init__()
+        self.R = int(R)
+
+    def init(self):
+        return 0     # index of the next kept sample
+
+    @property
+    def ratio(self) -> float:
+        return 1.0 / self.R
+
+    def step(self, state, x):
+        n = x.shape[-1]
+        if n % self.R:
+            raise ValueError("block length must be a multiple of R")
+        xf = x.reshape(*x.shape[:-1], n // self.R, self.R)
+        return state, xf[..., int(state)]
+
+
+class FirDecim(Block):
+    """Polyphase decimating FIR: filter and keep 1 in R, computing only the
+    kept outputs (parity: FiltreRIFDecim, polyphase.cc:157-245).
+
+    ``P`` (Kp, R) holds the polyphase taps, P[j, r] = h[j R + r].  The
+    state is the last Kp R input samples.  y[m] = sum_k h[k] x[mR - k]:
+    the input framed as rows of R samples, reversed within the row, gives
+    z[t, r] = x[(t - Kp + 1) R - r] and each lag j is a static row slice
+    of z dotted with P[j], in fp32 (the JAX package's HIGHEST einsum)."""
+
+    def __init__(self, P: torch.Tensor, K: int, R: int):
+        super().__init__()
+        self.register_buffer("P", P)
+        self.K = int(K)
+        self.R = int(R)
+
+    @classmethod
+    def create(cls, h, R: int, device="cuda") -> "FirDecim":
+        h = np.asarray(h, np.float64)
+        K = len(h)
+        Kp = (K + R - 1) // R
+        P = np.zeros(Kp * R)
+        P[:K] = h
+        return cls(torch.as_tensor(P.reshape(Kp, R), dtype=real_dtype,
+                                   device=_device(device)), K=K, R=R)
+
+    def init(self):
+        return torch.zeros((self.P.shape[0] * self.R,), dtype=real_dtype,
+                           device=self.P.device)
+
+    def init_for(self, x: torch.Tensor):
+        dt = complex_dtype if x.is_complex() else real_dtype
+        return torch.zeros(tuple(x.shape[:-1]) + (self.P.shape[0] * self.R,),
+                           dtype=dt, device=self.P.device)
+
+    @property
+    def ratio(self) -> float:
+        return 1.0 / self.R
+
+    @property
+    def delay(self) -> float:
+        return (self.K - 1) / 2 / self.R
+
+    def step(self, state, x):
+        n = x.shape[-1]
+        R = self.R
+        if n % R:
+            raise ValueError("block length must be a multiple of R")
+        Kp = self.P.shape[0]
+        xx = torch.cat([state, x.to(state.dtype)], dim=-1)
+        nout = n // R
+        Text = nout + Kp - 1
+        Fr = xx[..., 1:1 + Text * R].reshape(*xx.shape[:-1], Text, R)
+        Fr = Fr.flip(-1)
+
+        def accum(fr):
+            y = None
+            for j in range(Kp):
+                seg = fr[..., Kp - 1 - j:Kp - 1 - j + nout, :]
+                with _fp32_matmul():
+                    term = torch.matmul(seg, self.P[j])
+                y = term if y is None else y + term
+            return y
+
+        if Fr.is_complex():
+            y = torch.complex(accum(Fr.real.contiguous()),
+                              accum(Fr.imag.contiguous()))
+        else:
+            y = accum(Fr)
+        return xx[..., xx.shape[-1] - Kp * R:], y
 
 
 def _as_design(h):

@@ -6,13 +6,15 @@ A wrapper given a CPU tensor runs the plain version; given a CUDA tensor it
 launches the kernel or raises.  Each wrapper counts its launches in a plain
 integer attribute, ``wrapper.launches``.
 """
-from . import chain, fft, fir, periodogram  # noqa: F401
+from . import chain, demod_sb, fft, fir, periodogram  # noqa: F401
 
 WRAPPERS = {
     "fir": fir.fir_kernel,
     "periodogram4096": periodogram.periodogram4096_acc,
     "fir_periodogram4096": chain.fir_periodogram4096,
     "fft_pow2": fft.fft_pow2,
+    "demod_sb": demod_sb.demod_sb,
+    "demod_sb_fused": demod_sb.demod_sb_fused,
 }
 
 

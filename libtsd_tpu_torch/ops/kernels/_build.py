@@ -33,6 +33,7 @@ SMEM_MAX = 227 * 1024   # dynamic shared memory one block may use on sm_90
 P = ctypes.c_void_p
 I = ctypes.c_int
 I64 = ctypes.c_longlong
+F32 = ctypes.c_float
 
 # C entry points: name -> argument types (every one returns cudaError_t)
 SIGNATURES = {
@@ -40,6 +41,11 @@ SIGNATURES = {
     "periodogram4096_f32": [P, P, I, I64, I, P],
     "fir_periodogram4096": [P, P, P, P, I, I64, I, I, I, I, I, P],
     "fft_pow2_f32": [P, P, P, P, I, I, I, P],
+    "demod_sb_f32": [P, I64, P, P, P, I, P, P, P, I, I, I, I, I, I, I, I, I,
+                     F32, F32, F32, F32, I, I, P],
+    "demod_sb_fused_f32": [P, P, I, P, I, P, P, P, I, P, P, P, I, I, I, I, I,
+                           I, I, I, I, I, F32, F32, F32, F32, F32, I, I, I,
+                           P],
 }
 
 _lock = threading.Lock()

@@ -13,7 +13,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..config import real_dtype
+from ..config import device as _device, real_dtype
 from .fft import fft as _fft, fftshift
 from .window import window as _window
 
@@ -30,8 +30,9 @@ def _power(X: torch.Tensor) -> torch.Tensor:
 
 
 def psd_freqs(n: int, complex_input: bool = True,
-              device=None) -> torch.Tensor:
+              device="cuda") -> torch.Tensor:
     """Frequency grid for a PSD display."""
+    device = _device(device)
     if complex_input:
         if n % 2 == 0:
             return torch.linspace(-0.5, 0.5 - 1.0 / n, n, dtype=real_dtype,

@@ -1,5 +1,6 @@
 """Each CUDA kernel of libtsd_tpu_torch against its plain PyTorch version,
-on the card.  Every test is marked ``cuda`` and skips without a GPU.
+on the card (the demodulator kernels #5 and #6 with their own gates, at
+the end of the file).  Every test is marked ``cuda`` and skips without a GPU.
 
 This file imports no jax, so it runs on a GPU machine without one:
 
@@ -144,3 +145,142 @@ def test_fft_engine_auto_and_gradient(dev):
     assert rel(ga, gb) < TOL
     _, S = psd.psd_welch(z.real[:2], 256)
     assert torch.isfinite(S).all()
+
+
+# ------------------------------------------------- #5, #6: demod_sb
+# Gates, kernel against its plain version on the same inputs (the JAX
+# gates of tests/test_demod_sb.py:174-178 between its Pallas kernel and its
+# XLA scan): equal valid masks, max |dsymbol| < 1e-3 on valid symbols, bit
+# mismatch share < 1e-4.  Both sides are fp32; they differ in summation
+# order and in atan2f against torch.angle, which a decision-feedback loop
+# may amplify only where a symbol sits on a decision boundary.
+
+def _qam(dev, M, C, nsym, seed):
+    """C channels of one QPSK or QAM-16 stream (RRC 0.25, osf 4) at 8
+    fractional delays, with independent noise, made on the card."""
+    from libtsd_tpu_torch.models import waveform as W
+    from libtsd_tpu_torch.models.bitstream import randbits
+    from libtsd_tpu_torch.models.modulator import ModConfig, Modulator
+    sh = W.PulseShape.rcs(0.25)
+    wf = (W.wf_qam(16, sh, device=dev) if M == 16
+          else W.wf_qpsk(sh, device=dev))
+    mod = Modulator.create(ModConfig(wf=wf, fe=4.0, fsymb=1.0), device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bits = randbits(g, wf.info.k * nsym)
+    x, _ = mod.modulate(bits)
+    n = (x.shape[0] // 64) * 64
+    xs = torch.stack([F.delay_signal(x, 0.3 + 0.1 * c)[:n]
+                      for c in range(8)])
+    xs = xs.repeat(C // 8 + 1, 1)[:C]
+    w = torch.randn(2, C, n, generator=g, device=dev) * 0.02
+    return wf, bits, xs + torch.complex(w[0], w[1])
+
+
+def _demod_gates(k, p, nbits):
+    from libtsd_tpu_torch.models.waveform import symbol_indices_to_bits
+    (yk, sk, vk, stk), (yp, sp, vp, stp) = k, p
+    torch.cuda.synchronize()
+    assert torch.equal(vk, vp)
+    assert vk.float().mean() > 0.5
+    assert (yk - yp).abs()[vp].max().item() < 1e-3
+    bk = symbol_indices_to_bits(sk, nbits)
+    bp = symbol_indices_to_bits(sp, nbits)
+    assert (bk != bp).float().mean().item() < 1e-4
+    assert torch.isfinite(stk).all()
+
+
+@pytest.mark.parametrize("M,C,S,itrp", [(4, 200, 16, "cspline"),
+                                        (16, 77, 16, "cspline"),
+                                        (4, 40, 8, "linear"),
+                                        (4, 40, 32, "lagrange"),
+                                        (4, 40, 16, "sinc")])
+def test_demod_sb_kernel(dev, M, C, S, itrp):
+    """#5 against its plain version on two consecutive blocks (the second
+    one from the kernel's carried state)."""
+    from libtsd_tpu_torch.models.demod_sb import (DecisionDemodSB,
+                                                  SBDemodConfig, pack_state)
+    from libtsd_tpu_torch.ops.kernels import demod_sb as KSB
+    wf, _, x = _qam(dev, M, C, 1200, M + S)
+    dd = DecisionDemodSB.create(wf, SBDemodConfig(osf=4, S=S, itrp=itrp,
+                                                  engine="cuda"), device=dev)
+    st = dd.init_for(x)
+    for xb in (x[:, :2048], x[:, 2048:4000]):
+        _, zp = dd.matched_zp(st, xb)
+        p = dd.loop_params(xb.shape[-1])
+        s8 = pack_state(st)
+        before = KSB.demod_sb.launches
+        k = KSB.demod_sb(zp, s8, wf.symbols, p)
+        assert KSB.demod_sb.launches == before + 1
+        _demod_gates(k, KSB.demod_sb_plain(zp, s8, wf.symbols, p),
+                     wf.info.k)
+        st = dd.step(st, xb)[0]
+
+
+@pytest.mark.parametrize("M,C", [(4, 200), (16, 77)])
+def test_demod_sb_fused_kernel(dev, M, C):
+    """#6 against its plain version on two consecutive blocks (carried
+    input tail, pointer and power EMA)."""
+    from libtsd_tpu_torch.models.demod_sb import (DecisionDemodSB,
+                                                  SBDemodConfig, pack_state)
+    from libtsd_tpu_torch.ops.kernels import demod_sb as KSB
+    wf, _, x = _qam(dev, M, C, 1200, M)
+    dd = DecisionDemodSB.create(wf, SBDemodConfig(osf=4, S=16,
+                                                  engine="cuda-fused"),
+                                device=dev)
+    st = dd.init_for(x)
+    for xb in (x[:, :2048], x[:, 2048:4096]):
+        p = dd.loop_params(xb.shape[-1])
+        args = (xb, st["xtail"], pack_state(st), wf.symbols, dd.h_mf, p,
+                dd.rms_ref)
+        before = KSB.demod_sb_fused.launches
+        k = KSB.demod_sb_fused(*args)
+        assert KSB.demod_sb_fused.launches == before + 1
+        _demod_gates(k, KSB.demod_sb_fused_plain(*args), wf.info.k)
+        st = dd.step(st, xb)[0]
+
+
+@pytest.mark.parametrize("engine", ["cuda", "cuda-fused"])
+def test_qam16_engines_decode_on_card(dev, engine):
+    """Both engines decode QAM-16 on the card: tail EVM < 0.2 and zero
+    bit errors after warm-up (examples/qam_serving.py's checks)."""
+    from libtsd_tpu_torch.models import ber
+    from libtsd_tpu_torch.models.demod_sb import DecisionDemodSB, SBDemodConfig
+    wf, bits, x = _qam(dev, 16, 24, 2048, 3)
+    dd = DecisionDemodSB.create(wf, SBDemodConfig(osf=4, S=16,
+                                                  engine=engine), device=dev)
+    _, (_, syms, mask, _) = dd.step(dd.init_for(x), x)
+    t = syms[:, syms.shape[1] // 2:]
+    d2 = ((t[..., None] - wf.symbols).abs() ** 2).min(-1).values
+    evm = torch.sqrt(d2.mean(-1) / (wf.symbols.abs() ** 2).mean())
+    assert evm.max().item() < 0.2
+    for c in range(0, 24, 7):
+        sy = syms[c][mask[c]]
+        _, errs, _ = ber.cmp_bits_rot(bits[4 * 600:], sy[600:], wf,
+                                      max_lag=64)
+        assert errs == 0
+
+
+def test_demod_kernels_without_build_raise(dev, tmp_path, monkeypatch):
+    """No fallback: CUDA tensors with no kernel library (no nvcc) raise
+    instead of running the plain versions."""
+    from libtsd_tpu_torch.models.demod_sb import (DecisionDemodSB,
+                                                  SBDemodConfig, pack_state)
+    from libtsd_tpu_torch.ops.kernels import _build, demod_sb as KSB
+    wf, _, x = _qam(dev, 4, 8, 300, 1)
+    dd = DecisionDemodSB.create(wf, SBDemodConfig(osf=4, S=16), device=dev)
+    st = dd.init_for(x)
+    _, zp = dd.matched_zp(st, x)
+    p = dd.loop_params(x.shape[-1])
+    ddf = DecisionDemodSB.create(wf, SBDemodConfig(osf=4, S=16,
+                                                   engine="cuda-fused"),
+                                 device=dev)
+    stf = ddf.init_for(x)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_lib", None)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        KSB.demod_sb(zp, pack_state(st), wf.symbols, p)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        KSB.demod_sb_fused(x, stf["xtail"], pack_state(stf), wf.symbols,
+                           ddf.h_mf, p, ddf.rms_ref)

@@ -82,7 +82,8 @@ def test_shifts_freqs_next_pow2_match_jax():
     assert np.array_equal(Ft.ifftshift(torch.as_tensor(x)).numpy(),
                           np.asarray(Fj.ifftshift(jnp.asarray(x))))
     for n, shifted in ((8, True), (9, False)):
-        np.testing.assert_allclose(Ft.fft_freqs(n, 2.0, shifted).numpy(),
+        np.testing.assert_allclose(Ft.fft_freqs(n, 2.0, shifted,
+                                                 device="cpu").numpy(),
                                    np.asarray(Fj.fft_freqs(n, 2.0, shifted)),
                                    rtol=0, atol=1e-7)
     assert [Ft.next_pow2(v) for v in (1, 5, 64, 65)] == \
@@ -91,7 +92,7 @@ def test_shifts_freqs_next_pow2_match_jax():
 
 @pytest.mark.parametrize("n,cplx", [(512, True), (511, True), (100, False)])
 def test_psd_freqs_match_jax(n, cplx):
-    np.testing.assert_allclose(Pt.psd_freqs(n, cplx).numpy(),
+    np.testing.assert_allclose(Pt.psd_freqs(n, cplx, device="cpu").numpy(),
                                np.asarray(Pj.psd_freqs(n, cplx)),
                                rtol=0, atol=1e-7)
 

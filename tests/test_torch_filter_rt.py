@@ -62,7 +62,8 @@ def test_highest_tier_restores_callers_tf32_setting(caller_tf32):
 
     try:
         flags.allow_tf32 = caller_tf32
-        blk = FRt.Fir.create(np.ones(5), precision="highest")
+        blk = FRt.Fir.create(np.ones(5), precision="highest",
+                              device="cpu")
         x = torch.ones(2, 300)
         torch.matmul = spy
         try:
@@ -119,7 +120,7 @@ def test_fir_step_streamed_matches_jax(precision, kind, K):
     if kind == "complex_x":
         x = (x + 1j * rng.standard_normal(x.shape)).astype(np.complex64)
     fj = FRj.Fir.create(h, precision=precision)
-    ft = fir_from_jax(fj)
+    ft = fir_from_jax(fj, device="cpu")
     assert ft.K == K and ft.precision == precision
     assert ft.complex_taps == (kind == "complex_taps")
     sj = fj.init_for(jnp.asarray(x))
@@ -138,7 +139,7 @@ def test_fir_from_jax_leaves_dict():
     fj = FRj.Fir.create(h, precision="split")
     ft = fir_from_jax({"G_": np.asarray(fj.G_), "K": fj.K,
                        "complex_taps": fj.complex_taps,
-                       "precision": fj.precision})
+                       "precision": fj.precision}, device="cpu")
     assert np.array_equal(ft.G.numpy(), np.asarray(fj.G))
     assert ft.delay == fj.delay and ft.tail_state
 
@@ -169,7 +170,8 @@ def test_stream_chain_and_pad_match_jax():
     h1, h2 = rng.standard_normal(17), rng.standard_normal(9)
     x = rng.standard_normal(1000).astype(np.float32)
     cj = Bj.chain(FRj.Fir.create(h1), FRj.Fir.create(h2))
-    ct = Bt.chain(FRt.Fir.create(h1), FRt.Fir.create(h2), Bt.Identity())
+    ct = Bt.chain(FRt.Fir.create(h1, device="cpu"),
+                  FRt.Fir.create(h2, device="cpu"), Bt.Identity())
     assert ct.delay == cj.delay and ct.ratio == cj.ratio
     _, yj = Bj.stream(cj, jnp.asarray(x), 128)
     st, yt = Bt.stream(ct, torch.as_tensor(x), 128)

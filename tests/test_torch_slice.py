@@ -47,7 +47,7 @@ def test_main_path_small_matches_jax_chain():
     (Fir.step -> periodogram) and two-half streamed forms agree with the
     fused one."""
     h = fir_lowpass(256, 0.2)
-    fir = fir_from_jax(FRj.Fir.create(h))
+    fir = fir_from_jax(FRj.Fir.create(h), device="cpu")
     G = fir.G
     D = G.shape[0]
     C, N = 2, 2 * 65536
@@ -80,7 +80,7 @@ def test_main_path_small_matches_jax_chain():
 
 def test_port_imports_no_jax():
     code = ("import sys, libtsd_tpu_torch, libtsd_tpu_torch.ops, "
-            "libtsd_tpu_torch.utils; "
+            "libtsd_tpu_torch.models, libtsd_tpu_torch.utils.convert; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'libtsd_tpu')]; "
             "assert not bad, bad")
