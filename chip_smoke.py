@@ -15,7 +15,19 @@ Builds the port's CUDA kernels from ``libtsd_tpu_torch/csrc`` into
   demodulated by ``DecisionDemodSB`` over 8 steps of 8192 samples with
   the ``"cuda"`` engine (kernel #5) and the ``"cuda-fused"`` engine
   (kernel #6); tail EVM on every channel, bit errors after warm-up on
-  sampled channels, each kernel against its plain version.
+  sampled channels, each kernel against its plain version;
+* the frame receiver: 64 channels of QPSK frames (RRC 0.25, osf 4, a
+  64-bit header, distinct 256-bit payloads, one frame every 8,000 samples
+  so that frames straddle block edges) made on the card by the port's
+  ``Transmitter``, received by ``Receiver`` over 4 blocks with the state
+  carried, on the ``"cuda"`` engine (kernel #9, overlap-save correlation)
+  and the ``"cuda-fused"`` engine (kernel #10, fused detector front end):
+  every frame found once at its position with 0 bit errors, every
+  detection against the normalised correlation recomputed from the
+  stream, both engines' detections those of the ``"torch"`` engine, each
+  kernel against its plain version; then ``StreamReceiver``
+  (chunked pushes, checkpoint/restore) and ``StreamRunner`` over the
+  ``"cuda"`` OLA engine on channel 0.
 
 Every kernel is timed beside its plain version (CUDA events, median of 5
 after a warm-up), beside the least time the card could take for the same
@@ -25,8 +37,8 @@ read just after; a kernel of a path that was not launched fails the run.
 Any failure raises and exits non-zero.  Without a CUDA device it exits 1
 and prints no result.  ``--profile DIR`` adds ``torch.profiler`` windows
 over the fused and composed main path and over one step of each QAM
-engine (device busy time, idle share, top kernels; chrome traces into
-DIR).
+engine and of each frame-receiver engine (device busy time, idle share,
+top kernels; chrome traces into DIR).
 
 Output, in order: versions and the card (``nvidia-smi`` name, power
 limit), build time, one line per check with its tolerance, timings, launch
@@ -68,6 +80,24 @@ TOL_EVM = 0.2          # tail EVM, every channel (qam_serving.py:75)
 TOL_SYM = 1e-3         # max |dsymbol| on valid symbols
 TOL_BITS = 1e-4        # bit mismatch share
 
+# the frame receiver (benchmarks/tpu_frame_bench.py:28-35,142-143 at C = 64)
+C_FRM, BLOCKS_FRM = 64, 4
+N_FRM = {"cuda": 33 * 3968, "cuda-fused": 131072}  # block: multiples of Ne
+THRESHOLD_FRM = 0.5    # the detector's threshold
+SPACING_FRM = 8000     # one frame every SPACING_FRM samples
+PAYLOAD_FRM = 256      # payload bits per frame
+FRM_NOISE = 0.02       # noise std per real dimension (tpu_frame_bench.py:48)
+CHUNK_FRM = 10007      # StreamReceiver / StreamRunner push size
+# kernel vs plain: #9 max |dy| / max |y| (the JAX gate, tests/test_pallas.py:
+# 148,224); #10 cr/ci/en to TOL_PLANE of their peak, score max |d| TOL_SCORE
+TOL_OLA = 1e-5
+TOL_PLANE = 1e-5
+TOL_SCORE = 1e-4
+# every detection against the normalised correlation recomputed in float64
+# from the stream at its position: the score gate of tests/test_detfront.py:
+# 36-42, and a local maximum within that slack
+TOL_DET = 5e-4
+
 # the card's published peaks (NVIDIA's H100 SXM data sheet): HBM bytes/s and
 # fp32 FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12
@@ -86,10 +116,15 @@ KERNELS = {   # wrapper name -> (source, the Pallas call it replaces)
                  "libtsd_tpu/ops/pallas/demod_sb.py:338"),
     "demod_sb_fused": ("libtsd_tpu_torch/csrc/demod_sb.cu",
                        "libtsd_tpu/ops/pallas/demod_sb.py:561"),
+    "ola": ("libtsd_tpu_torch/csrc/ola.cu",
+            "libtsd_tpu/ops/pallas/ola.py:220"),
+    "detfront": ("libtsd_tpu_torch/csrc/detfront.cu",
+                 "libtsd_tpu/ops/pallas/detfront.py:132"),
 }
 PATH_KERNELS = {"main": ("fir", "periodogram4096", "fir_periodogram4096",
                          "fft_pow2"),
-                "qam": ("demod_sb", "demod_sb_fused")}
+                "qam": ("demod_sb", "demod_sb_fused"),
+                "frame": ("ola", "detfront")}
 
 
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
@@ -610,6 +645,351 @@ def qam_timings(x, qp) -> dict:
     return out
 
 
+# ------------------------------------------------------- frame receiver
+
+
+def frame_signal(gen, dev) -> dict:
+    """C_FRM channels of BLOCKS_FRM * 131072 samples, made on the card:
+    frames of the port's Transmitter (QPSK, RRC 0.25, fe 4, fsymb 1, a
+    seeded 64-bit header, a distinct random payload per frame) every
+    SPACING_FRM samples from a per-channel start, times a per-channel gain
+    in [0.8, 1.2] and carrier phase, plus noise FRM_NOISE per dimension.
+    Only frames that end well before the shorter ("cuda") stream's end are
+    inserted, so that both engines see every one of them complete."""
+    from libtsd_tpu_torch.models import waveform as W
+    from libtsd_tpu_torch.models.bitstream import randbits
+    from libtsd_tpu_torch.models.frame import FrameFormat, Transmitter
+    from libtsd_tpu_torch.models.modulator import ModConfig
+    wf = W.wf_qpsk(W.PulseShape.rcs(0.25), device=dev)
+    hdr = tuple(int(b) for b in randbits(gen, 64).tolist())
+    fmt = FrameFormat(modulation=ModConfig(wf=wf, fe=4.0, fsymb=1.0),
+                      header_bits=hdr, payload_bits=PAYLOAD_FRM)
+    tx = Transmitter.create(fmt, device=dev)
+    total = BLOCKS_FRM * max(N_FRM.values())
+    last = BLOCKS_FRM * min(N_FRM.values()) - 3000
+    start = 100 + (torch.arange(C_FRM, device=dev) * 997) % SPACING_FRM
+    nfr = (last - 100 - SPACING_FRM) // SPACING_FRM + 1
+    pos = start[:, None] + SPACING_FRM * torch.arange(nfr, device=dev)
+    bits = randbits(gen, C_FRM * nfr * PAYLOAD_FRM).reshape(
+        C_FRM, nfr, PAYLOAD_FRM)
+    frames = tx.transmit(bits.reshape(-1, PAYLOAD_FRM)).reshape(
+        C_FRM, nfr, -1)
+    L = frames.shape[-1]
+    gain = 0.8 + 0.4 * torch.rand(C_FRM, generator=gen, device=dev)
+    phase = 2 * np.pi * torch.rand(C_FRM, generator=gen, device=dev)
+    rot = (gain * torch.exp(1j * phase)).to(torch.complex64)
+    w = torch.randn(2, C_FRM, total, generator=gen, device=dev) * FRM_NOISE
+    x = torch.complex(w[0], w[1])
+    rows = torch.arange(C_FRM, device=dev)[:, None]
+    for k in range(nfr):
+        cols = pos[:, k, None] + torch.arange(L, device=dev)
+        x[rows, cols] += rot[:, None] * frames[:, k]
+    torch.cuda.synchronize()
+    print(f"frame signal: {C_FRM} x {total} samples, {nfr} frames a channel "
+          f"of {L} samples, spacing {SPACING_FRM}, frame bits "
+          f"{64 + PAYLOAD_FRM}")
+    return dict(fmt=fmt, x=x, pos=pos, bits=bits, L=L)
+
+
+def frame_receivers(fmt, dev) -> dict:
+    from libtsd_tpu_torch.models.detector import DetectorConfig
+    from libtsd_tpu_torch.models.frame import Receiver
+    return {eng: Receiver.create(
+        fmt, DetectorConfig(threshold=THRESHOLD_FRM, max_peaks=17,
+                            engine=eng),
+        pll_stride=8, device=dev) for eng in ("torch", "cuda", "cuda-fused")}
+
+
+def frame_block(eng: str, rx) -> int:
+    """The block length of an engine: N_FRM, or for "torch" the most whole
+    hops of its own Ne in N_FRM["cuda-fused"]."""
+    return N_FRM.get(eng, N_FRM["cuda-fused"] // rx.det.Ne * rx.det.Ne)
+
+
+def frame_path(rxs, x) -> dict:
+    """The frame receiver as a user drives it: Receiver.step over
+    BLOCKS_FRM blocks of C_FRM channels with the state carried, on each
+    engine (the "torch" engine launches neither kernel: its detections are
+    the reference of the kernel engines'); keeps the state before each
+    block and each block's frames."""
+    out = {}
+    for eng, rx in rxs.items():
+        n = frame_block(eng, rx)
+        st = rx.init_for(x[:, :n])
+        states, frames = [], []
+        for b in range(BLOCKS_FRM):
+            states.append(st)
+            st, fr = rx.step(st, x[:, b * n:(b + 1) * n])
+            frames.append(fr)
+        out[eng] = dict(rx=rx, states=states, frames=frames, n=n)
+    torch.cuda.synchronize()
+    return out
+
+
+def _found(rx, frames, n) -> list:
+    """Per channel, the valid frames of every block as (stream position of
+    the header, payload bits, detection score) in time order, on the
+    host."""
+    from libtsd_tpu_torch.models.frame import _pull_tree
+    res = [[] for _ in range(C_FRM)]
+    for b, fr in enumerate(frames):
+        h = _pull_tree(fr)
+        for c, i in zip(*np.nonzero(h.valid)):
+            res[c].append((int(h.detection.position[c, i]) + b * n,
+                           h.bits[c, i], float(h.detection.score[c, i])))
+    return [sorted(r, key=lambda t: t[0]) for r in res]
+
+
+def _direct_scores(x, taps, got) -> tuple[float, float, int]:
+    """Every detection's score against the normalised correlation
+    |sum_j taps[M-1-j] x[q+j]| / sqrt(sum_j |x[q+j]|^2) recomputed in
+    float64 from the stream at its start q and at q -+ 1, apart from the
+    detector's code.  Returns (max |score - direct|, the largest amount by
+    which a neighbour's direct score beats the detection's, and how many
+    direct scores lie at or under the threshold's gate)."""
+    M = taps.shape[0]
+    w = taps.flip(0).to(torch.complex128)
+    ch = torch.tensor([c for c in range(C_FRM) for _ in got[c]],
+                      device=x.device)
+    q = torch.tensor([g[0] for c in range(C_FRM) for g in got[c]],
+                     device=x.device)
+    sc = torch.tensor([g[2] for c in range(C_FRM) for g in got[c]],
+                      device=x.device, dtype=torch.float64)
+    s = []
+    for o in (-1, 0, 1):
+        idx = (q + o)[:, None] + torch.arange(M, device=x.device)
+        win = x[ch[:, None], idx.clamp(0, x.shape[-1] - 1)].to(
+            torch.complex128)
+        s.append(((win * w).sum(-1).abs()
+                  / (win.abs() ** 2).sum(-1).sqrt()).clamp(max=1.0))
+    d = (sc - s[1]).abs().max().item()
+    beat = (torch.maximum(s[0], s[2]) - s[1]).max().item()
+    return d, beat, int((s[1] <= THRESHOLD_FRM - TOL_DET).sum())
+
+
+def frame_checks(sig, fp):
+    """Every inserted frame found exactly once on every channel, at its
+    position (+-1 sample) with 0 payload bit errors, on each engine; every
+    detection, those inside a frame but off its header included, a local
+    maximum over the threshold of the normalised correlation recomputed
+    from the stream; the kernel engines' detections (positions, bits)
+    those of the "torch" engine; each kernel against its plain version on
+    the step's own inputs (blocks 0 and 2, full width).  Returns the
+    largest absolute error of each kernel against its plain version, and
+    each engine's frames per channel."""
+    from libtsd_tpu_torch.ops.kernels import detfront as DF, ola
+    pos = sig["pos"].cpu().numpy()
+    bits = sig["bits"].cpu().numpy()
+    found = {}
+    for eng, r in fp.items():
+        rx = r["rx"]
+        d = int(round(rx.mod_delay))     # the header starts d samples in
+        got = _found(rx, r["frames"], r["n"])
+        missed = extra = stray = berr = nbits = 0
+        for c in range(C_FRM):
+            p = np.array([g[0] for g in got[c]], np.int64)
+            want = pos[c] + d
+            near = np.abs(p[:, None] - want[None, :]) <= 1
+            # a detection near no header: inside a frame it is a sidelobe
+            # of the header on that frame's random payload; outside every
+            # frame it is a detection in noise
+            far = p[~near.any(1)]
+            inside = ((far[:, None] >= pos[c][None, :])
+                      & (far[:, None] < pos[c][None, :] + sig["L"])).any(1)
+            extra += len(far)
+            stray += int((~inside).sum())
+            for k in range(len(want)):
+                j = np.nonzero(near[:, k])[0]
+                if len(j) != 1:
+                    missed += 1
+                    continue
+                berr += int((got[c][j[0]][1] != bits[c, k]).sum())
+                nbits += bits.shape[-1]
+        taps = fp["cuda-fused"]["rx"].det.corr.taps[:rx.det.M]
+        dsc, beat, low = _direct_scores(sig["x"], taps, got)
+        ok = (missed == 0 and stray == 0 and berr == 0 and dsc < TOL_DET
+              and beat < TOL_DET and low == 0)
+        print(f"check frame {eng}: {C_FRM * pos.shape[1]} frames inserted, "
+              f"{missed} not found once at +-1 sample, {berr} bit errors in "
+              f"{nbits} payload bits; {extra} more detections, all inside "
+              f"frames (header sidelobes on random payloads), {stray} "
+              f"outside; every detection vs the float64 normalised "
+              f"correlation at its position: max|dscore| {dsc:.3e}, a "
+              f"neighbour above it by {beat:.3e} at most, tol {TOL_DET:g}, "
+              f"{low} at or under the threshold; {BLOCKS_FRM} blocks of "
+              f"{r['n']} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"frame {eng}: frames or bits")
+        found[eng] = got
+    a = found["torch"]
+    for eng in ("cuda", "cuda-fused"):
+        b = found[eng]
+        same = all(len(a[c]) == len(b[c]) and all(
+            pa == pb and np.array_equal(ba, bb)
+            for (pa, ba, _), (pb, bb, _) in zip(a[c], b[c]))
+            for c in range(C_FRM))
+        print(f"check frame {eng} vs torch: the same detections (positions, "
+              f"bits) on every channel, {sum(map(len, b))} and "
+              f"{sum(map(len, a))} {'ok' if same else 'FAIL'}")
+        if not same:
+            raise AssertionError(f"frame engine {eng} disagrees with torch")
+    x = sig["x"]
+    err = {"ola": 0.0, "detfront": 0.0}
+    for b in (0, 2):
+        r = fp["cuda"]
+        n, corr = r["n"], r["rx"].det.corr
+        xb = x[:, b * n:(b + 1) * n]
+        st = r["states"][b]["det"]["corr"]
+        yk, _ = ola.ola_stream(xb, st, corr.H, corr.M, corr.Nf)
+        yp, _ = ola.ola_stream_plain(xb, st, corr.H, corr.M, corr.Nf)
+        err["ola"] = max(err["ola"], check(
+            f"frame ola (#9) vs plain, {C_FRM} x {n} block {b}",
+            torch.view_as_real(yk), torch.view_as_real(yp), TOL_OLA))
+        r = fp["cuda-fused"]
+        n, fr = r["n"], r["rx"].det.corr
+        xb = x[:, b * n:(b + 1) * n]
+        st = r["states"][b]["det"]["corr"]
+        k = DF.detfront(xb, st, fr.taps, fr.M)
+        p = DF.detfront_plain(xb, st, fr.taps, fr.M)
+        for name, a_, b_ in zip(("cr", "ci", "en"), k, p):
+            err["detfront"] = max(err["detfront"], check(
+                f"frame detfront (#10) {name} vs plain, {C_FRM} x {n} "
+                f"block {b}", a_, b_, TOL_PLANE))
+        ds = (k[3] - p[3]).abs().max().item()
+        ok = bool(torch.isfinite(k[3]).all()) and ds < TOL_SCORE
+        print(f"check frame detfront (#10) score vs plain, block {b}: "
+              f"max_abs_err={ds:.6e} tol={TOL_SCORE:g} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("detfront score vs plain")
+        err["detfront"] = max(err["detfront"], ds)
+        del k, p, yk, yp
+        torch.cuda.empty_cache()
+    return err, found
+
+
+def frame_serving(sig, rxs, found_ch0, tmp: str) -> None:
+    """StreamReceiver on channel 0 ("cuda-fused") fed CHUNK_FRM-sample
+    pushes, then flush: it gives channel 0's frames; a checkpoint halfway,
+    restored into a fresh StreamReceiver, gives the rest bit-identically.
+    StreamRunner over OlaFft(engine="cuda") on the same stream equals
+    one-shot filtering."""
+    from libtsd_tpu_torch.io.runner import StreamRunner
+    from libtsd_tpu_torch.models.frame import StreamReceiver
+    from libtsd_tpu_torch.ops.filter_rt import OlaFft
+    from libtsd_tpu_torch.ops.kernels import ola
+    rx = rxs["cuda-fused"]
+    n_stream = BLOCKS_FRM * N_FRM["cuda-fused"]
+    x0 = sig["x"][0, :n_stream].cpu().numpy()
+
+    def key(frames):
+        return [(int(f.detection.position), f.bits.tobytes(),
+                 float(f.EbN0_db)) for f in frames]
+
+    ref = StreamReceiver(rx, block_len=N_FRM["cuda-fused"])
+    for off in range(0, n_stream, CHUNK_FRM):
+        ref.push(x0[off:off + CHUNK_FRM])
+    ref.flush()
+    got = []
+    a = StreamReceiver(rx, block_len=N_FRM["cuda-fused"], callback=got.append)
+    cut = (n_stream // 2 // CHUNK_FRM) * CHUNK_FRM
+    for off in range(0, cut, CHUNK_FRM):
+        a.push(x0[off:off + CHUNK_FRM])
+    ck = os.path.join(tmp, "stream_receiver.npz")
+    a.checkpoint(ck)
+    b = StreamReceiver(rx, block_len=N_FRM["cuda-fused"], callback=got.append)
+    b.restore(ck)
+    for off in range(cut, n_stream, CHUNK_FRM):
+        b.push(x0[off:off + CHUNK_FRM])
+    b.flush()
+    want_bits = [g[1].tobytes() for g in found_ch0]
+    ok1 = [f.bits.tobytes() for f in ref.frames] == want_bits
+    ok2 = key(got) == key(ref.frames)
+    print(f"check frame StreamReceiver ch 0, pushes of {CHUNK_FRM}: "
+          f"{len(ref.frames)} frames, the receiver's {len(found_ch0)} "
+          f"{'ok' if ok1 else 'FAIL'}; checkpoint at {cut} + restore: "
+          f"{len(got)} frames bit-identical {'ok' if ok2 else 'FAIL'}")
+    if not (ok1 and ok2):
+        raise AssertionError("StreamReceiver")
+    # the detector's correlation taps (conj of the reversed header)
+    h = rx.det.corr.taps[:rx.det.M].cpu().numpy()
+    blk = OlaFft.create(h, engine="cuda", device=sig["x"].device)
+    run = StreamRunner(blk, block_len=8 * blk.Ne)
+    y = run.run([x0[off:off + CHUNK_FRM]
+                 for off in range(0, n_stream, CHUNK_FRM)], flush=True)
+    x0d = sig["x"][0, :n_stream]
+    one = ola.ola_filter(x0d, h).cpu().numpy()
+    plain = ola.ola_filter(x0d.cpu(), h).numpy()
+    y = y[:n_stream]
+    r1 = np.abs(y - one).max() / np.abs(one).max()
+    r2 = np.abs(y - plain).max() / np.abs(plain).max()
+    ok = r1 < TOL_OLA and r2 < TOL_OLA
+    print(f"check frame StreamRunner(OlaFft cuda) ch 0, pushes of "
+          f"{CHUNK_FRM}: vs one-shot ola_filter rel_err={r1:.3e} (bit-equal "
+          f"{np.array_equal(y, one)}), vs its plain version rel_err="
+          f"{r2:.3e}, tol={TOL_OLA:g} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("StreamRunner over OlaFft")
+
+
+def frame_timings(sig, rxs, fp):
+    """One Receiver.step at C_FRM on each engine, each kernel alone and its
+    plain version on block 0 (CUDA events, median of 5 after a warm-up),
+    and each kernel's bound.  #9: 16 bytes a sample (x in, y out) plus the
+    state and H; per window two Nf-point FFTs (5 Nf log2 Nf each) and the
+    product (6 Nf).  #10: 8 bytes a sample in and 16 out (four planes)
+    plus the state and taps; its least work computes the correlation as #9
+    does, by overlap-save at the detector's own plan (Nf, Ne of ola_plan(M)),
+    and the window energy as a running sum: (10 Nf log2 Nf + 6 Nf) / Ne
+    flop a sample, 3 for |x|^2, 2 for the running sum and 6 for the
+    score."""
+    from libtsd_tpu_torch.models.frame import MonitoredReceiver
+    from libtsd_tpu_torch.ops.kernels import detfront as DF, ola
+    x = sig["x"]
+    out, steps = {}, {}
+    for eng, rx in rxs.items():
+        n = frame_block(eng, rx)
+        xb = x[:, :n]
+        st = rx.init_for(xb)
+        ms = time_ms(lambda: rx.step(st, xb))
+        steps[eng] = (ms, C_FRM * n / ms / 1e3, n)
+        # the receiver's own stage monitors (host clock, each stage ends in
+        # a device synchronisation): detection front end vs extraction
+        mr = MonitoredReceiver(rx)
+        for _ in range(4):
+            mr.step(st, xb)
+        stats = mr.moniteurs()
+        print(f"time frame step {eng}: {ms:.4f} ms ({C_FRM * n / ms / 1e3:.1f}"
+              f" Msamples/s aggregate, {C_FRM} x {n}); stages (host clock, "
+              f"mean of 4 synchronised steps): front end "
+              f"{1e3 * stats['recepteur/ola'].mean_s:.3f} ms, extraction "
+              f"{1e3 * stats['recepteur/demod'].mean_s:.3f} ms")
+    r = fp["cuda"]
+    n, corr = r["n"], r["rx"].det.corr
+    xb, st = x[:, :n].contiguous(), r["states"][0]["det"]["corr"]
+    args = (xb, st, corr.H, corr.M, corr.Nf)
+    ms_k = time_ms(lambda: ola.ola_stream(*args))
+    ms_p = time_ms(lambda: ola.ola_stream_plain(*args))
+    nwin = C_FRM * n // corr.Ne
+    bms, by = bound(16 * C_FRM * n + 8 * st.numel() + 8 * corr.Nf,
+                    nwin * (2 * fft_flops(corr.Nf) + 6 * corr.Nf))
+    out["ola"] = (ms_k, ms_p, bms, by, None)
+    print(f"time frame ola (#9): kernel {ms_k:.4f} ms, plain (cuFFT route) "
+          f"{ms_p:.4f} ms, bound {bms:.4f} ms by {by}; library call none")
+    r = fp["cuda-fused"]
+    n, fr = r["n"], r["rx"].det.corr
+    xb, st = x[:, :n].contiguous(), r["states"][0]["det"]["corr"]
+    ms_k = time_ms(lambda: DF.detfront(xb, st, fr.taps, fr.M))
+    ms_p = time_ms(lambda: DF.detfront_plain(xb, st, fr.taps, fr.M))
+    nf, ne, _ = ola.ola_plan(fr.M)
+    bms, by = bound(24 * C_FRM * n + 8 * st.numel() + 8 * fr.taps.numel(),
+                    C_FRM * n * ((2 * fft_flops(nf) + 6 * nf) / ne + 11))
+    out["detfront"] = (ms_k, ms_p, bms, by, None)
+    print(f"time frame detfront (#10): kernel {ms_k:.4f} ms, plain "
+          f"{ms_p:.4f} ms, bound {bms:.4f} ms by {by}; library call none")
+    return out, steps
+
+
 def profile(mp, out_dir: str) -> None:
     """Optional phase: torch.profiler over 5 back-to-back calls of the
     fused int16/2 chain and of the composed path (Fir.step -> #2), after a
@@ -671,8 +1051,8 @@ def main() -> int:
     ap.add_argument("--out", help="also write the results as JSON here")
     ap.add_argument("--profile", metavar="DIR",
                     help="also profile the fused and composed main path "
-                         "and one step of each QAM engine; chrome traces go "
-                         "into DIR")
+                         "and one step of each QAM and frame-receiver "
+                         "engine; chrome traces go into DIR")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
@@ -724,6 +1104,32 @@ def main() -> int:
             f"qam_{eng}": (lambda r=r: r["dd"].step(r["states"][0], xb))
             for eng, r in qp.items()}, args.profile, calls=3)
 
+    del xq, qp
+    torch.cuda.empty_cache()
+
+    # the frame receiver (kernels #9 and #10)
+    sig = frame_signal(gen, dev)
+    rxs = frame_receivers(sig["fmt"], dev)
+    kernels.reset_launches()
+    fp = frame_path(rxs, sig["x"])
+    launches.update({k: v for k, v in kernels.launches().items()
+                     if k in PATH_KERNELS["frame"]})
+    ferr, found = frame_checks(sig, fp)
+    errs.update(ferr)
+    tmp = _build.BUILD_DIR.parent / "chip_smoke"
+    tmp.mkdir(parents=True, exist_ok=True)
+    frame_serving(sig, rxs, found["cuda-fused"][0], str(tmp))
+    tf, fsteps = frame_timings(sig, rxs, fp)
+    tq.update(tf)
+    if args.profile:
+        windows = {}
+        for eng, rx in rxs.items():
+            n = fsteps[eng][2]
+            windows[f"frame_{eng}"] = (
+                lambda rx=rx, xb=sig["x"][:, :n]: rx.step(rx.init_for(xb),
+                                                          xb))
+        profile_windows(windows, args.profile, calls=1)
+
     print("launches (each path): " + json.dumps(launches))
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
@@ -732,7 +1138,7 @@ def main() -> int:
     rows = []
     for name, (src, rep) in KERNELS.items():
         if name in tq:
-            k, p, bms, by, lib, _, _ = tq[name]
+            k, p, bms, by, lib = tq[name][:5]
         else:
             k, p, _ = t[headline.get(name, name)]
             bms, by, lib = extra[name]
@@ -748,7 +1154,11 @@ def main() -> int:
                                       for n, (k, p, s) in t.items()},
                        "qam_step": {n: {"step_ms": v[5],
                                         "msamples_per_s": v[6]}
-                                    for n, v in tq.items()}},
+                                    for n, v in tq.items() if len(v) > 5},
+                       "frame_step": {e: {"step_ms": v[0],
+                                          "msamples_per_s": v[1],
+                                          "channels": C_FRM, "n": v[2]}
+                                      for e, v in fsteps.items()}},
                       f, indent=1)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

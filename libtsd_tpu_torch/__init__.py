@@ -9,9 +9,12 @@ Layout (the JAX package's, with ``ops/kernels/`` for ``ops/pallas/``):
 * ``libtsd_tpu_torch.ops``    -- window, FIR and IIR design, FIR runtime,
   FFT/PSD, resampling pieces, and the kernels.
 * ``libtsd_tpu_torch.models`` -- waveforms, modulator, carrier and clock
-  recovery, the decision-directed demodulators, BER tooling.
+  recovery, the decision-directed demodulators, BER tooling, the pattern
+  detector and the frame transmitter and receiver.
+* ``libtsd_tpu_torch.io``     -- ring buffer, re-blocking, IQ readers and
+  the ``StreamRunner`` serving loop.
 * ``libtsd_tpu_torch.utils``  -- conversion of JAX-package parameters and
-  states.
+  states, checkpoints, monitors, logging.
 """
 
 from . import config

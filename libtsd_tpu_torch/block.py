@@ -15,10 +15,17 @@ The same pure protocol as the JAX package::
   ``tail_state`` says whether its state is the last input samples (the
   overlap-save contract that a time-sharded caller may seed with a
   neighbour's tail).
+
+States of composite blocks are nested dicts, tuples and dataclasses of
+tensors ("trees").  :func:`tree_flatten` orders their leaves as JAX orders
+a pytree's (dict keys sorted, tuple items and dataclass fields in order),
+so that a checkpoint's ``leaf_i`` means the same leaf in both packages;
+:func:`tree_signature` names the structure, in place of jax's treedef.
 """
 from __future__ import annotations
 
-from typing import Any, Tuple
+import dataclasses
+from typing import Any, Callable, List, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -154,3 +161,68 @@ def pad_to_multiple(x: torch.Tensor, m: int, axis: int = 0) -> torch.Tensor:
     # F.pad lists (front, back) pairs from the LAST axis backwards
     spec = [0, 0] * (x.ndim - 1 - axis) + [0, pad]
     return F.pad(x, spec)
+
+
+# ------------------------------------------------------------------ trees
+
+def _children(tree) -> Tuple[str, list, Any]:
+    """(kind, children, rebuild) of one tree node; kind "" for a leaf."""
+    if isinstance(tree, dict):
+        keys = sorted(tree)
+        return "dict", [tree[k] for k in keys], \
+            lambda ch: dict(zip(keys, ch))
+    if isinstance(tree, (tuple, list)):
+        typ = type(tree)
+        return typ.__name__, list(tree), lambda ch: typ(ch)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        names = [f.name for f in dataclasses.fields(tree)]
+        return type(tree).__name__, [getattr(tree, k) for k in names], \
+            lambda ch: dataclasses.replace(tree, **dict(zip(names, ch)))
+    if tree is None:
+        return "None", [], lambda ch: None
+    return "", [], None
+
+
+def tree_flatten(tree) -> Tuple[List[Any], Callable[[list], Any]]:
+    """Leaves in JAX's order and a function that rebuilds the tree from a
+    list of new leaves."""
+    kind, ch, rebuild = _children(tree)
+    if not kind:
+        return [tree], lambda leaves: leaves[0]
+    leaves, builders, counts = [], [], []
+    for c in ch:
+        lv, b = tree_flatten(c)
+        leaves += lv
+        builders.append(b)
+        counts.append(len(lv))
+
+    def unflatten(new):
+        out, off = [], 0
+        for b, k in zip(builders, counts):
+            out.append(b(new[off:off + k]))
+            off += k
+        return rebuild(out)
+    return leaves, unflatten
+
+
+def tree_map(fn, tree, *rest):
+    """fn applied leaf by leaf over trees of one structure."""
+    leaves, unflatten = tree_flatten(tree)
+    others = [tree_flatten(t)[0] for t in rest]
+    return unflatten([fn(*ls) for ls in zip(leaves, *others)])
+
+
+def tree_signature(tree) -> str:
+    """The structure of a tree as text: node kinds, dict keys and dataclass
+    field names, leaves as ``*``."""
+    kind, ch, _ = _children(tree)
+    if not kind:
+        return "*"
+    if kind == "dict":
+        return "{" + ",".join(f"{k}:{tree_signature(tree[k])}"
+                              for k in sorted(tree)) + "}"
+    if dataclasses.is_dataclass(tree):
+        return kind + "(" + ",".join(
+            f"{f.name}:{tree_signature(getattr(tree, f.name))}"
+            for f in dataclasses.fields(tree)) + ")"
+    return kind + "(" + ",".join(tree_signature(c) for c in ch) + ")"

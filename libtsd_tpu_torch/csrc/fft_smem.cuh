@@ -25,6 +25,15 @@
 // Twiddles: a table of n/2 values exp(-2 pi i k / n) that the block fills
 // once with sincospif (~1 ulp); W^(k + n/2) = -W^k gives the other half.
 // The inverse transform is conj(FFT(conj(x))), applied by the caller.
+//
+// fft_forward_t is the transpose of fft_forward: the same passes in
+// reverse order, each multiplying by its twiddles before its R-point DFT.
+// Since the DFT matrix is symmetric, it takes data in fft_forward's
+// position order and returns the DFT in natural order (a numpy model of
+// both passes is checked against np.fft in tests/test_torch_frame.py).
+// So a spectrum
+// left in position order by fft_forward goes back to the time domain with
+// no permuting pass (ola.cu).
 #pragma once
 #include <cuda_runtime.h>
 
@@ -153,6 +162,34 @@ __device__ __forceinline__ void fft_pass(float2* buf, const float2* tw,
   }
 }
 
+// The transposed pass: twiddles first, then the R-point DFT, in place.
+template <int LR>
+__device__ __forceinline__ void fft_pass_t(float2* buf, const float2* tw,
+                                           int log2n, int count, int log2m) {
+  constexpr int R = 1 << LR;
+  const int lq = log2m - LR;
+  const int cols = count << (log2n - LR);
+  const int half = 1 << (log2n - 1);
+  const int tw_shift = log2n - log2m;
+  for (int c = threadIdx.x; c < cols; c += blockDim.x) {
+    const int t = c & ((1 << lq) - 1);
+    const int base = ((c >> lq) << log2m) + t;
+    float2 v[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) v[r] = buf[fft_pad(base + (r << lq))];
+#pragma unroll
+    for (int k = 1; k < R; ++k) {
+      const int e = (t * k) << tw_shift;
+      float2 w = tw[e & (half - 1)];
+      if (e >= half) w = make_float2(-w.x, -w.y);
+      v[k] = fft_cmul(v[k], w);
+    }
+    fft_dft_reg<LR>(v);
+#pragma unroll
+    for (int k = 0; k < R; ++k) buf[fft_pad(base + (k << lq))] = v[k];
+  }
+}
+
 // `count` forward transforms of n = 2^log2n (4 <= log2n) points, stored
 // one after another in the padded layout.  Starts and ends with a
 // block-wide barrier, so the caller may write buf just before and read it
@@ -173,4 +210,24 @@ __device__ __forceinline__ void fft_forward(float2* buf, const float2* tw,
     log2m -= 4;
     __syncthreads();
   }
+}
+
+// `count` transforms of n = 2^log2n points held in fft_forward's position
+// order -> their DFTs in natural order (the transpose of fft_forward, see
+// the top of this file).  Barriers as fft_forward.
+__device__ __forceinline__ void fft_forward_t(float2* buf, const float2* tw,
+                                              int log2n, int count) {
+  __syncthreads();
+  const int rb = log2n & 3;
+  for (int log2m = 4; log2m <= log2n - rb; log2m += 4) {
+    fft_pass_t<4>(buf, tw, log2n, count, log2m);
+    __syncthreads();
+  }
+  switch (rb) {
+    case 1: fft_pass_t<1>(buf, tw, log2n, count, log2n); break;
+    case 2: fft_pass_t<2>(buf, tw, log2n, count, log2n); break;
+    case 3: fft_pass_t<3>(buf, tw, log2n, count, log2n); break;
+    default: break;
+  }
+  if (rb) __syncthreads();
 }

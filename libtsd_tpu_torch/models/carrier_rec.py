@@ -4,8 +4,9 @@ PLLs, FFT peak frequency (PyTorch), ported from
 
 Parity: core/src/telecom/carrier-rec.cc and
 core/include/tsd/telecom.hpp:774-792.  The per-sample PLL is a Python loop
-over the samples (the JAX package's ``lax.scan``); the PEDs are pure
-functions of one symbol (or a batch of them).
+over the samples (the JAX package's ``lax.scan``), time on the last axis
+and any leading axes run as independent loops (the JAX package vmaps);
+the PEDs are elementwise functions of the symbols.
 """
 from __future__ import annotations
 
@@ -198,20 +199,17 @@ class Cpll(Block):
         self.wf = wf
         self.device = (_device(device) if device is not None else
                        (wf.device if wf is not None else _device("cuda")))
+        # built once: make_ped reads a constellation point to the host
+        # (a device sync), which a step must not do
+        M = cfg.M
+        if M is None and wf is None:
+            M = 2     # a PED of the wrong order would not strip the modulation
+        self._ped = make_ped(cfg.ped, wf=wf, M=M)
 
     @property
     def _lf(self):
         return (LoopFilter2(self.cfg.BL, self.cfg.eta)
                 if self.cfg.order == 2 else LoopFilter1(self.cfg.tau))
-
-    @property
-    def _ped(self):
-        # M None -> make_ped derives the order from the waveform; a PED of
-        # the wrong order would not strip the modulation
-        M = self.cfg.M
-        if M is None and self.wf is None:
-            M = 2
-        return make_ped(self.cfg.ped, wf=self.wf, M=M)
 
     def init(self):
         return self._lf.init(self.device)
@@ -222,18 +220,22 @@ class Cpll(Block):
 
     def step(self, state, x: torch.Tensor,
              valid: Optional[torch.Tensor] = None):
-        """``valid``: optional per-sample mask; the loop freezes on invalid
-        entries (e.g. the zero pad of a clock-recovery block)."""
+        """Time runs along the last axis of x; leading axes are independent
+        loops (one per frame of the frame receiver), whose state takes
+        those leading axes after the first step.  ``valid``: optional
+        per-sample mask shaped like x; the loop freezes on invalid entries
+        (e.g. the zero pad of a clock-recovery block)."""
         lf, ped = self._lf, self._ped
-        if valid is None:
-            valid = torch.ones(x.shape, dtype=torch.bool, device=x.device)
         ys = []
-        for i in range(x.shape[0]):
-            y = x[i] * torch.exp(-1j * self._theta(state)).to(complex_dtype)
+        for i in range(x.shape[-1]):
+            y = x[..., i] * torch.exp(-1j * self._theta(state)).to(
+                complex_dtype)
             st2, _ = lf.step(state, ped(y))
-            state = _where(valid[i], st2, state)
+            state = st2 if valid is None else _where(valid[..., i], st2,
+                                                     state)
             ys.append(y)
-        return state, torch.stack(ys) if ys else x.to(complex_dtype)
+        return state, (torch.stack(ys, dim=-1) if ys
+                       else x.to(complex_dtype))
 
     def _grouped_lf(self, G: int):
         """Loop filter at the per-group update rate (bandwidth scaled by G,
@@ -248,7 +250,9 @@ class Cpll(Block):
         applied to the whole group, the per-symbol errors are averaged, and
         the loop filter advances once (per-update bandwidth scaled by G).
         ``err_fn(y, *aux)`` replaces the PED (``step_aided``); ``aux`` are
-        same-length tensors grouped alongside x."""
+        tensors grouped alongside x (their time axis is the last one, their
+        leading axes broadcast against x's).  Time on the last axis, as in
+        :meth:`step`."""
         if G <= 1 and err_fn is None:
             return self.step(state, x)
         lf = self._grouped_lf(G) if G > 1 else self._lf
@@ -262,24 +266,29 @@ class Cpll(Block):
             # pad by repeating the last entry: a zero would inject a bogus
             # error term into the group mean
             if pad:
-                a = torch.cat([a, a[..., -1:].expand(pad)])
-            return a.reshape(ng, G)
+                a = torch.cat([a, a[..., -1:].expand(
+                    tuple(a.shape[:-1]) + (pad,))], dim=-1)
+            return a.reshape(tuple(a.shape[:-1]) + (ng, G))
 
         xs = prep(x)
         auxs = tuple(prep(a) for a in aux)
         ys = []
         for g in range(ng):
-            y = xs[g] * torch.exp(-1j * self._theta(state)).to(complex_dtype)
-            e = err_fn(y, *(a[g] for a in auxs)).mean()
+            th = self._theta(state)
+            y = xs[..., g, :] * torch.exp(-1j * th[..., None]).to(
+                complex_dtype)
+            e = err_fn(y, *(a[..., g, :] for a in auxs)).mean(-1)
             state, _ = lf.step(state, e)
             ys.append(y)
-        return state, torch.stack(ys).reshape(-1)[:n]
+        y = torch.stack(ys, dim=-2)
+        return state, y.reshape(tuple(y.shape[:-2]) + (ng * G,))[..., :n]
 
     def step_aided(self, state, x: torch.Tensor, ref: torch.Tensor,
                    ref_mask: torch.Tensor, G: int = 1):
         """Data-aided phase errors arg(y conj(ref)) where ``ref_mask`` is
         True (known symbols, e.g. a frame's header), the configured PED
-        elsewhere.  ``G > 1`` delegates to :meth:`step_grouped`."""
+        elsewhere.  ``G > 1`` delegates to :meth:`step_grouped`.  Time on
+        the last axis; ``ref`` and ``ref_mask`` broadcast against x."""
         ped = self._ped
 
         def err(y, r, use_r):
@@ -291,11 +300,12 @@ class Cpll(Block):
                                      aux=(ref, ref_mask))
         lf = self._lf
         ys = []
-        for i in range(x.shape[0]):
-            y = x[i] * torch.exp(-1j * self._theta(state)).to(complex_dtype)
-            state, _ = lf.step(state, err(y, ref[i], ref_mask[i]))
+        for i in range(x.shape[-1]):
+            y = x[..., i] * torch.exp(-1j * self._theta(state)).to(
+                complex_dtype)
+            state, _ = lf.step(state, err(y, ref[..., i], ref_mask[..., i]))
             ys.append(y)
-        return state, torch.stack(ys)
+        return state, torch.stack(ys, dim=-1)
 
 
 class Rpll(Block):

@@ -79,6 +79,12 @@ class Modulator(Block):
                 torch.zeros((), dtype=real_dtype, device=dev),  # FSK phase
                 torch.zeros((), dtype=torch.int32, device=dev))  # parity
 
+    def init_for(self, symbs: torch.Tensor):
+        """State for a batch of symbol rows (leading axes of ``symbs``):
+        one shaping-filter history per row, shared scalar phases."""
+        st = self.init()
+        return (self.shaper.init_for(symbs.to(complex_dtype)),) + st[1:]
+
     def _post_shaper(self, y, ph, fsk_ph):
         """FSK phase integration, IF upconversion, real output."""
         cfg = self.config
@@ -88,15 +94,15 @@ class Modulator(Block):
             # data maximum: the RF must not depend on the blocking
             vmax = self.wf.symbols.real.abs().max()
             vf = y.real * (om_max / torch.clamp(vmax, min=1e-30))
-            phases = fsk_ph + torch.cumsum(vf, dim=-1)
+            phases = fsk_ph[..., None] + torch.cumsum(vf, dim=-1)
             y = torch.exp(1j * phases).to(complex_dtype)
-            fsk_ph = torch.remainder(phases[-1], 2 * np.pi)
+            fsk_ph = torch.remainder(phases[..., -1], 2 * np.pi)
         if cfg.fi != 0.0:
             # NCO phase in wrapped cycles, the per-block increment reduced
             # mod 1 in host float64
             n = y.shape[-1]
             f = cfg.fi / cfg.fe
-            cyc = ph + cycles(f, n, device=y.device)
+            cyc = ph[..., None] + cycles(f, n, device=y.device)
             y = y * torch.exp(2j * np.pi * cyc).to(complex_dtype)
             ph = torch.remainder(ph + np.float32((f * n) % 1.0), 1.0)
         if cfg.real_output:
@@ -124,8 +130,8 @@ class Modulator(Block):
         symbols)."""
         nflush = (self.nc + self.config.osf - 1) // self.config.osf
         sh_state, ph, fsk_ph, par = state
-        zsym = torch.zeros((nflush,), dtype=complex_dtype,
-                           device=self.wf.device)
+        zsym = torch.zeros(tuple(sh_state.shape[:-1]) + (nflush,),
+                           dtype=complex_dtype, device=self.wf.device)
         sh_state, y = self.shaper.step(sh_state, zsym)
         y, ph, fsk_ph = self._post_shaper(y, ph, fsk_ph)
         return (sh_state, ph, fsk_ph, par), y

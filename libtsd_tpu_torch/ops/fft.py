@@ -11,12 +11,11 @@ kernel wrapper (which takes its plain version for a CPU tensor),
 ``engine="torch"`` forces ``torch.fft``.
 
 Not ported yet: ``czt``, ``goertzel``, ``goertzel_stream``, ``hadamard``,
-``wht``, ``resample_freq``, ``force_csym``,
-``ola_complexity(_optimize)`` (see ROADMAP.md).
+``wht``, ``resample_freq``, ``force_csym`` (see ROADMAP.md).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,7 +25,8 @@ from ..config import complex_dtype, device as _device, real_dtype
 from .kernels.fft import NMAX, NMIN, FftPow2
 
 __all__ = ["fft", "ifft", "rfft", "irfft", "fftshift", "ifftshift",
-           "fft_freqs", "next_pow2", "delay_signal"]
+           "fft_freqs", "next_pow2", "delay_signal", "ola_complexity",
+           "ola_complexity_optimize"]
 
 ENGINES = ("auto", "kernel", "torch")
 
@@ -140,3 +140,30 @@ def delay_signal(x: torch.Tensor, delay) -> torch.Tensor:
         rot[N // 2] = torch.cos(2 * np.pi * kf[N // 2] * delay)
     y = torch.fft.ifft(X * rot, dim=-1)[..., pad_lo:pad_lo + n]
     return y.real if is_real else y
+
+
+# ---------------------------------------------------------- OLA cost model
+
+def ola_complexity(M: int, Ne: int) -> Tuple[float, int, int]:
+    """FLOPs/sample of overlap-add FFT filtering with pattern length M and
+    input block Ne. Returns (C, Nf, Nz). Parity: ola_complexité,
+    core/src/fourier/fourier.cc:708-714."""
+    Nf = next_pow2(Ne + M - 1)
+    Nz = Nf - Ne
+    C = (1.0 / Ne) * 2 * 5 * Nf * np.log2(Nf)
+    return C, Nf, Nz
+
+
+def ola_complexity_optimize(M: int) -> Tuple[float, int, int, int]:
+    """Pick the FFT size minimizing FLOPs/sample. Returns (C, Nf, Nz, Ne).
+    Parity: ola_complexité_optimise, fourier.cc:715-739."""
+    kmin = int(np.ceil(np.log2(max(M, 2))))
+    best = None
+    for k in range(kmin, min(kmin + 20, 31)):
+        Ne = (1 << k) - (M - 1)
+        if Ne <= 0:
+            continue
+        C, Nf, Nz = ola_complexity(M, Ne)
+        if best is None or C < best[0]:
+            best = (C, Nf, Nz, Ne)
+    return best

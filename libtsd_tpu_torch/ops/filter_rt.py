@@ -20,12 +20,19 @@ Precision tiers of every matmul (``_mm_prec``):
 bf16 products are formed exactly in fp32 (bf16 operands rounded, then
 multiplied as fp32) and accumulated in fp32, as the MXU does.
 
-Not ported yet: ``filtfilt``, the recursive blocks and ``OlaFft`` (see
-ROADMAP.md).
+``MovingAverage`` (the detector's window energy) and the overlap FFT block
+``OlaFft``/``FirFft`` are ported too.  ``OlaFft`` has two engines: "torch"
+(the JAX package's "xla": ``torch.fft`` overlap-add, state = the carried
+output residue) and "cuda" (the JAX package's "pallas": kernel #9,
+overlap-save, state = the last V inputs, ``tail_state`` True).
+
+Not ported yet: ``filtfilt`` and the recursive blocks other than
+``MovingAverage`` (see ROADMAP.md).
 """
 from __future__ import annotations
 
 import contextlib
+from typing import Optional
 
 import numpy as np
 import torch
@@ -35,7 +42,8 @@ from ..block import Block
 from ..config import complex_dtype, device as _device, real_dtype
 
 __all__ = ["fir_toeplitz_mats", "fir_filter", "fir_filter_valid", "Fir",
-           "DelayLine", "Decimator", "FirDecim", "filter_signal"]
+           "DelayLine", "Decimator", "FirDecim", "MovingAverage", "OlaFft",
+           "FirFft", "OLA_ENGINES", "filter_signal"]
 
 _L = 128  # frame size
 PRECISIONS = ("highest", "split", "bf16")
@@ -346,6 +354,174 @@ class FirDecim(Block):
         return xx[..., xx.shape[-1] - Kp * R:], y
 
 
+class MovingAverage(Block):
+    """K-sample moving average with double accumulation (parity:
+    MoyenneGlissante, filtre-rt.cc:634-724): a float32 cumsum difference
+    per block with the last K - 1 inputs carried, as the JAX package
+    computes it.  The detector's "torch" and "cuda" engines take their
+    window energy from it."""
+
+    def __init__(self, K: int, device="cuda"):
+        super().__init__()
+        self.K = int(K)
+        self.device = _device(device)
+
+    def init(self):
+        return torch.zeros((self.K - 1,), dtype=real_dtype,
+                           device=self.device)
+
+    def init_for(self, x: torch.Tensor):
+        dt = complex_dtype if x.is_complex() else real_dtype
+        return torch.zeros(tuple(x.shape[:-1]) + (self.K - 1,), dtype=dt,
+                           device=self.device)
+
+    @property
+    def delay(self) -> float:
+        return (self.K - 1) / 2
+
+    def step(self, state, x):
+        xx = torch.cat([state, x.to(state.dtype)], dim=-1)
+        c = torch.cumsum(xx.to(complex_dtype if xx.is_complex()
+                               else real_dtype), dim=-1)
+        c = F.pad(c, (1, 0))
+        y = (c[..., self.K:] - c[..., :-self.K]) / self.K
+        # xx.shape-based slice: [-(K-1):] would be [-0:] for K = 1
+        return xx[..., xx.shape[-1] - (self.K - 1):], y.to(x.dtype)
+
+
+OLA_ENGINES = ("torch", "cuda")
+_JAX_OLA_ENGINES = {"xla": "torch", "pallas": "cuda"}
+
+
+class OlaFft(Block):
+    """Overlap FFT block filter with a frozen frequency response (parity:
+    filtre_fft / FiltreFFT, fourier.cc:708-935; the reference's user
+    callback mode is not ported, as in the JAX package).
+
+    ``step`` takes blocks whose length is a multiple of ``Ne``.  Engine
+    "torch": each Ne-sample block is zero-padded to Nf = next_pow2(Ne + M
+    - 1), transformed, multiplied by H, inverse-transformed and
+    overlap-added with the carried output residue (Nf - Ne samples).
+    Engine "cuda": kernel #9 (``ops.kernels.ola``), overlap-save with the
+    last V inputs as the state; Nf and Ne follow its plan.  ``H`` is a
+    complex64 buffer in natural bin order on both engines."""
+
+    def __init__(self, H: torch.Tensor, Ne: int, Nf: int, M: int,
+                 engine: str = "torch", complex_taps: bool = False,
+                 precision: str = "highest"):
+        super().__init__()
+        if engine not in OLA_ENGINES:
+            raise ValueError(_engine_error(engine))
+        self.register_buffer("H", H)
+        self.Ne, self.Nf, self.M = int(Ne), int(Nf), int(M)
+        self.engine = engine
+        self.complex_taps = bool(complex_taps)
+        self.precision = precision
+
+    @classmethod
+    def create(cls, h, Ne: Optional[int] = None, engine: str = "torch",
+               precision: str = "highest", device="cuda") -> "OlaFft":
+        """engine: "torch" or "cuda" (kernel #9; its plan sets Nf and Ne,
+        and a requested Ne is the least hop wanted).  precision ("highest"
+        or "split", the JAX tiers of the kernel) runs fp32 on both."""
+        from .fft import next_pow2, ola_complexity_optimize
+        from .kernels.ola import ola_plan
+        if engine not in OLA_ENGINES:
+            raise ValueError(_engine_error(engine))
+        device = _device(device)
+        h = np.asarray(h)
+        M = len(h)
+        if engine == "cuda":
+            if Ne is None:
+                Nf, Ne, _ = ola_plan(M)
+            else:
+                # the smallest valid FFT size whose hop covers the request
+                V = max(128, -(-(M - 1) // 128) * 128)
+                Nf = min(max(next_pow2(Ne + V), 256), 16384)
+                if Nf < V + 128:
+                    raise ValueError(
+                        f"filter too long for the cuda OLA engine: "
+                        f"ntaps={M} needs Nf > {V + 128}, max 16384")
+                Nf, Ne, _ = ola_plan(M, Nf)
+        elif Ne is None:
+            _, Nf, _, Ne = ola_complexity_optimize(M)
+        else:
+            Nf = next_pow2(Ne + M - 1)
+        H = torch.as_tensor(np.fft.fft(h, Nf).astype(np.complex64),
+                            device=device)
+        return cls(H, Ne=Ne, Nf=Nf, M=M, engine=engine,
+                   complex_taps=bool(np.iscomplexobj(h)), precision=precision)
+
+    @property
+    def tail_state(self) -> bool:
+        # overlap-save ("cuda"): the state is the last V INPUT samples;
+        # overlap-add ("torch"): the carried OUTPUT residue, which a
+        # neighbour's input halo must not be seeded into
+        return self.engine == "cuda"
+
+    @property
+    def V(self) -> int:
+        return self.Nf - self.Ne
+
+    def init(self):
+        return torch.zeros((self.Nf - self.Ne,), dtype=complex_dtype,
+                           device=self.H.device)
+
+    def init_for(self, x: torch.Tensor):
+        return torch.zeros(tuple(x.shape[:-1]) + (self.Nf - self.Ne,),
+                           dtype=complex_dtype, device=self.H.device)
+
+    @property
+    def delay(self) -> float:
+        return (self.M - 1) / 2
+
+    def step(self, state, x):
+        n = x.shape[-1]
+        Ne, Nf = self.Ne, self.Nf
+        if n % Ne:
+            raise ValueError(f"input length {n} is not a multiple of "
+                             f"Ne={Ne}")
+        real_out = not x.is_complex() and not self.complex_taps
+        if self.engine == "cuda":
+            from .kernels.ola import ola_stream
+            lead = tuple(x.shape[:-1])
+            y, st = ola_stream(x.reshape(-1, n).to(complex_dtype),
+                               state.reshape(-1, self.V), self.H, self.M, Nf)
+            y = y.reshape(lead + (n,))
+            st = st.reshape(lead + (self.V,))
+            return st, (y.real if real_out else y)
+        nblk = n // Ne
+        lead = tuple(x.shape[:-1])
+        xb = x.to(complex_dtype).reshape(lead + (nblk, Ne))
+        yb = torch.fft.ifft(torch.fft.fft(xb, n=Nf, dim=-1) * self.H, dim=-1)
+        # overlap-add: block b's Nf outputs start at b Ne; m = ceil(Nf/Ne)
+        # hop-long pieces per block, summed over the blocks they overlap,
+        # then the carried residue added to the first Nf - Ne samples
+        m = -(-Nf // Ne)
+        yb = F.pad(yb, (0, m * Ne - Nf)).reshape(lead + (nblk, m, Ne))
+        acc = torch.zeros(lead + ((nblk + m - 1) * Ne,), dtype=complex_dtype,
+                          device=yb.device)
+        for j in range(m):
+            acc[..., j * Ne:(j + nblk) * Ne] += yb[..., j, :].reshape(
+                lead + (nblk * Ne,))
+        acc[..., :Nf - Ne] += state
+        y = acc[..., :n]
+        return acc[..., n:n + Nf - Ne], (y.real if real_out else y)
+
+
+class FirFft(OlaFft):
+    """FIR filtering through the OLA engine (parity: filtre_rif_fft,
+    fourier.cc:974-1010)."""
+
+
+def _engine_error(engine: str) -> str:
+    hint = (f" (the JAX package's {engine!r} is the port's "
+            f"{_JAX_OLA_ENGINES[engine]!r})" if engine in _JAX_OLA_ENGINES
+            else "")
+    return (f"engine={engine!r}: the port's OLA engines are "
+            f"{OLA_ENGINES}{hint}")
+
+
 def _as_design(h):
     """Normalize a filter spec: taps -> FIR; (b, a) tuple or ZPK -> IIR."""
     if isinstance(h, tuple) and len(h) == 2:
@@ -356,16 +532,21 @@ def _as_design(h):
 
 
 def filter_signal(h, x: torch.Tensor, mode: str = "direct") -> torch.Tensor:
-    """One-shot filtering.  h: FIR taps (direct mode).  IIR designs and
-    mode="fft" are not ported yet and raise."""
+    """One-shot filtering.  h: FIR taps; mode="fft" runs the OLA FFT path
+    (``OlaFft``, "torch" engine, on x's device).  IIR designs are not
+    ported yet and raise."""
     if _as_design(h) == "iir":
         raise NotImplementedError(
             "IIR filtering (iir_filter, IirFrame, Sos) is not ported yet: "
             "ROADMAP.md slice 6")
     if mode == "fft":
-        raise NotImplementedError(
-            "mode='fft' (OlaFft overlap-save) is not ported yet: "
-            "ROADMAP.md slice 7")
+        from ..block import pad_to_multiple
+        x = torch.as_tensor(x)
+        blk = OlaFft.create(np.asarray(h), device=x.device)
+        n = x.shape[-1]
+        xp = pad_to_multiple(x, blk.Ne, axis=x.ndim - 1)
+        _, y = blk.step(blk.init_for(xp), xp)
+        return y[..., :n]
     if mode != "direct":
         raise ValueError(f"mode must be 'direct' or 'fft', got {mode!r}")
     return fir_filter(h, x)

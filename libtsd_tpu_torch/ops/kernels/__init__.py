@@ -6,7 +6,8 @@ A wrapper given a CPU tensor runs the plain version; given a CUDA tensor it
 launches the kernel or raises.  Each wrapper counts its launches in a plain
 integer attribute, ``wrapper.launches``.
 """
-from . import chain, demod_sb, fft, fir, periodogram  # noqa: F401
+from . import (chain, demod_sb, detfront, fft, fir, ola,  # noqa: F401
+               periodogram)
 
 WRAPPERS = {
     "fir": fir.fir_kernel,
@@ -15,6 +16,8 @@ WRAPPERS = {
     "fft_pow2": fft.fft_pow2,
     "demod_sb": demod_sb.demod_sb,
     "demod_sb_fused": demod_sb.demod_sb_fused,
+    "ola": ola.ola_stream,
+    "detfront": detfront.detfront,
 }
 
 

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` into ONE shared library
-with a plain C interface, loaded with ``ctypes``.  The library lives under
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc``, all of them at
+once, and the objects are linked into ONE shared library with a plain C
+interface, loaded with ``ctypes``.  The library lives under
 ``build/libtsd_tpu_torch/`` at the root of the checkout (``.gitignore``
 lists ``build/``); its file name carries a hash of the sources and flags,
 so an edit rebuilds.  It is built at first use, never at import.
@@ -46,6 +47,8 @@ SIGNATURES = {
     "demod_sb_fused_f32": [P, P, I, P, I, P, P, P, I, P, P, P, I, I, I, I, I,
                            I, I, I, I, I, F32, F32, F32, F32, F32, I, I, I,
                            P],
+    "ola_f32": [P, P, P, P, I, I64, I, I, P],
+    "detfront_f32": [P, P, P, P, P, P, P, I, I, I, I, I, P],
 }
 
 _lock = threading.Lock()
@@ -77,23 +80,48 @@ def library_path() -> Path:
     return BUILD_DIR / f"libtsd_kernels_{_digest()}.so"
 
 
+def _run(cmds: list) -> str:
+    """Run the commands all at once; raise on the first that fails.
+    Returns their joined output."""
+    procs = [(c, subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True))
+             for c in cmds]
+    outs, failed = [], None
+    for c, p in procs:
+        out = p.communicate()[0]
+        outs.append(out)
+        if p.returncode != 0 and failed is None:
+            failed = (c, p.returncode, out)
+    if failed:
+        c, rc, out = failed
+        raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(c)}\n{out}")
+    return "".join(outs)
+
+
 def build(verbose: bool = False) -> Path:
-    """Compile the sources into the hashed .so unless it already exists."""
+    """Compile the sources into the hashed .so unless it already exists:
+    one nvcc per source, all started together, then one link."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    srcs = sorted(CSRC.glob("*.cu"))
+    objs = [BUILD_DIR / f"{tag}.{s.stem}.o" for s in srcs]
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({r.returncode}):\n{' '.join(cmd)}\n{r.stdout}\n"
-            f"{r.stderr}")
+    try:
+        log = _run([[nvcc, *compile_flags, *(["-Xptxas", "-v"] if verbose
+                                              else []), "-c", "-o", str(o),
+                     str(s)] for s, o in zip(srcs, objs)])
+        log += _run([[nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, objs)]])
+        os.replace(tmp, out)   # atomic: concurrent builders never see a partial
+    finally:
+        for f in (*objs, tmp):
+            f.unlink(missing_ok=True)
     if verbose:
-        print(r.stdout + r.stderr)
-    os.replace(tmp, out)   # atomic: concurrent builders never see a partial
+        print(log)
     return out
 
 

@@ -1,6 +1,7 @@
 """Each CUDA kernel of libtsd_tpu_torch against its plain PyTorch version,
-on the card (the demodulator kernels #5 and #6 with their own gates, at
-the end of the file).  Every test is marked ``cuda`` and skips without a GPU.
+on the card (the demodulator kernels #5 and #6 and the frame kernels #9
+and #10 with their own gates, at the end of the file).  Every test is
+marked ``cuda`` and skips without a GPU.
 
 This file imports no jax, so it runs on a GPU machine without one:
 
@@ -284,3 +285,128 @@ def test_demod_kernels_without_build_raise(dev, tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc"):
         KSB.demod_sb_fused(x, stf["xtail"], pack_state(stf), wf.symbols,
                            ddf.h_mf, p, ddf.rms_ref)
+
+
+# ------------------------------------------- #9 ola, #10 detfront
+# Gates: #9's output and new state to 1e-5 of the plain version's peak
+# (the JAX gate between its Pallas OLA kernel and XLA's FFT path,
+# tests/test_pallas.py:148,224); #10's correlation and energy planes to
+# 1e-5 of their peak, its raw score to 1e-4 absolute.  Both sides are fp32:
+# #9 against torch.fft in another butterfly order, #10 against cuDNN's
+# fp32 convolution (TF32 off) in another summation order.
+
+def _cplx(g, dev, *shape):
+    return torch.complex(torch.randn(shape, generator=g, device=dev),
+                         torch.randn(shape, generator=g, device=dev))
+
+
+@pytest.mark.parametrize("complex_taps", [False, True])
+@pytest.mark.parametrize("K,Nf", [(129, 256), (128, 4096), (1000, 16384)])
+def test_ola_kernel(dev, K, Nf, complex_taps):
+    """#9 against its plain version on two consecutive blocks at an odd
+    channel count, the second from the carried state."""
+    from libtsd_tpu_torch.ops.kernels import ola
+    rng = np.random.default_rng(K)
+    h = rng.standard_normal(K)
+    if complex_taps:
+        h = h + 1j * rng.standard_normal(K)
+    Nf, Ne, V = ola.ola_plan(K, Nf)
+    H = ola.freq_response(h, Nf, dev)
+    g = torch.Generator(device=dev).manual_seed(K)
+    x = _cplx(g, dev, 3, 5 * Ne)
+    st = _cplx(g, dev, 3, V)
+    st0, ys = st, []
+    for xb in (x[:, :2 * Ne], x[:, 2 * Ne:]):
+        before = ola.ola_stream.launches
+        yk, sk = ola.ola_stream(xb, st, H, K, Nf)
+        assert ola.ola_stream.launches == before + 1
+        yp, sp = ola.ola_stream_plain(xb, st, H, K, Nf)
+        assert rel(yk, yp) < 1e-5
+        assert torch.equal(sk, sp)
+        st = sk
+        ys.append(yk)
+    # each window is one block of the kernel: continuation is exact
+    assert torch.equal(torch.cat(ys, -1), ola.ola_stream(x, st0, H, K, Nf)[0])
+
+
+def test_ola_filter_kernel_matches_direct_form(dev):
+    """One-shot ``ola_filter`` on the card against the direct-form FIR of
+    the same taps (float64 on the host), real and complex taps."""
+    from libtsd_tpu_torch.ops.kernels import ola
+    rng = np.random.default_rng(3)
+    x = (rng.standard_normal((2, 20000))
+         + 1j * rng.standard_normal((2, 20000))).astype(np.complex64)
+    for h in (rng.standard_normal(97),
+              rng.standard_normal(97) + 1j * rng.standard_normal(97)):
+        y = ola.ola_filter(torch.as_tensor(x, device=dev), h).cpu().numpy()
+        ref = np.stack([np.convolve(r.astype(np.complex128), h)[:20000]
+                        for r in x])
+        assert np.abs(y - ref).max() / np.abs(ref).max() < 1e-5
+
+
+@pytest.mark.parametrize("M,n", [(88, 5 * 2048 + 3 * 128), (128, 8192),
+                                 (1500, 4096)])
+def test_detfront_kernel(dev, M, n):
+    """#10 against its plain version on two consecutive blocks at an odd
+    channel count (a ragged last tile at M = 88, several tap chunks at
+    M = 1500)."""
+    from libtsd_tpu_torch.ops.kernels import detfront as DF
+    rng = np.random.default_rng(M)
+    pat = rng.standard_normal(M) + 1j * rng.standard_normal(M)
+    fr = DF.DetFront.create(np.conj(pat[::-1]) / np.linalg.norm(pat),
+                            device=dev)
+    g = torch.Generator(device=dev).manual_seed(M)
+    x = _cplx(g, dev, 3, 2 * n)
+    st = fr.init_for(x)
+    for xb in (x[:, :n], x[:, n:]):
+        before = DF.detfront.launches
+        k = DF.detfront(xb, st, fr.taps, M)
+        assert DF.detfront.launches == before + 1
+        p = DF.detfront_plain(xb, st, fr.taps, M)
+        for a, b in zip(k[:3], p[:3]):
+            assert rel(a, b) < 1e-5
+        assert (k[3] - p[3]).abs().max().item() < 1e-4
+        st = fr.step(st, xb)[0]
+
+
+@pytest.mark.parametrize("engine", ["cuda", "cuda-fused"])
+def test_detector_engines_match_torch_engine_on_card(dev, engine):
+    """The detector's kernel engines find the "torch" engine's detections
+    on the card (the gates of tests/test_detfront.py:36-42)."""
+    from libtsd_tpu_torch.models.detector import DetectorConfig, detect_pattern
+    rng = np.random.default_rng(11)
+    pat = (rng.standard_normal(128)
+           + 1j * rng.standard_normal(128)).astype(np.complex64)
+    x = (0.05 * (rng.standard_normal((3, 20000))
+                 + 1j * rng.standard_normal((3, 20000)))).astype(np.complex64)
+    for c in range(3):
+        for pos in (1200 + 7 * c, 9000, 15000 - 5 * c):
+            x[c, pos:pos + 128] += 0.9 * np.exp(1j * c) * pat
+    xd = torch.as_tensor(x, device=dev)
+    d1, s1 = detect_pattern(xd, pat, DetectorConfig(threshold=0.5))
+    d2, s2 = detect_pattern(xd, pat, DetectorConfig(threshold=0.5,
+                                                    engine=engine))
+    assert torch.equal(d1.valid, d2.valid) and int(d1.valid.sum()) == 9
+    assert torch.equal(d1.position, d2.position)
+    assert (s1 - s2).abs().max().item() < 5e-4
+    assert (d1.gain - d2.gain).abs().max().item() < 1e-3
+    assert (d1.theta - d2.theta).abs().max().item() < 1e-3
+
+
+def test_frame_kernels_without_build_raise(dev, tmp_path, monkeypatch):
+    """No fallback: CUDA tensors with no kernel library (no nvcc) raise
+    instead of running the plain versions of #9 and #10."""
+    from libtsd_tpu_torch.ops.kernels import _build, detfront as DF, ola
+    Nf, Ne, V = ola.ola_plan(64)
+    H = ola.freq_response(np.ones(64), Nf, dev)
+    x = torch.zeros(2, Ne, dtype=torch.complex64, device=dev)
+    fr = DF.DetFront.create(np.ones(64), device=dev)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_lib", None)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        ola.ola_stream(x, torch.zeros(2, V, dtype=torch.complex64,
+                                      device=dev), H, 64, Nf)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        fr.step(fr.init_for(x[:, :1024]), x[:, :1024])

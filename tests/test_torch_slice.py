@@ -80,7 +80,9 @@ def test_main_path_small_matches_jax_chain():
 
 def test_port_imports_no_jax():
     code = ("import sys, libtsd_tpu_torch, libtsd_tpu_torch.ops, "
-            "libtsd_tpu_torch.models, libtsd_tpu_torch.utils.convert; "
+            "libtsd_tpu_torch.models, libtsd_tpu_torch.utils.convert, "
+            "libtsd_tpu_torch.io, libtsd_tpu_torch.utils.checkpoint, "
+            "libtsd_tpu_torch.utils.monitor, libtsd_tpu_torch.utils.log; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'libtsd_tpu')]; "
             "assert not bad, bad")
