@@ -27,7 +27,20 @@ Builds the port's CUDA kernels from ``libtsd_tpu_torch/csrc`` into
   stream, both engines' detections those of the ``"torch"`` engine, each
   kernel against its plain version; then ``StreamReceiver``
   (chunked pushes, checkpoint/restore) and ``StreamRunner`` over the
-  ``"cuda"`` OLA engine on channel 0.
+  ``"cuda"`` OLA engine on channel 0;
+* the FM broadcast receiver (BASELINE config 4, ``FmReceiverConfig()``
+  defaults) at 256 channels x 2^18 complex samples, each an FM tone of its
+  own frequency plus noise: the composed ``FmReceiver.step`` and the fused
+  chain ``FmChain`` (kernel #8), #8 against its plain version and against
+  the composed chain, the composed chain streamed against one shot, every
+  channel's tone recovered; again at channel_freq 0.22 on 32 channels;
+* the IIR cascade (kernel #7): an order-4 Butterworth lowpass as 2
+  sections over 64 x 2^18 samples, against its plain version and float64
+  ``scipy.signal.sosfilt``, 4 calls with the state carried bit-identical
+  to one call;
+* the QAM-16 modem (``Qam16Modem``, ``__graft_entry__.entry()``) in both
+  ``rx_mode``s: the entry workload, then 2,000 symbols delayed by 1.3
+  samples against the BER and EVM gates of tests/test_receivers.py.
 
 Every kernel is timed beside its plain version (CUDA events, median of 5
 after a warm-up), beside the least time the card could take for the same
@@ -98,6 +111,28 @@ TOL_SCORE = 1e-4
 # 36-42, and a local maximum within that slack
 TOL_DET = 5e-4
 
+# the FM broadcast receiver, BASELINE config 4 at the serving block of
+# benchmarks/tpu_fm_bench.py:3-6: FmReceiverConfig() defaults (f0 0.25, R 4,
+# 63 taps, deviation 0.1, de-emphasis 0.05), C x N complex64 samples
+C_FM, N_FM = 256, 1 << 18
+C_FM22 = 32            # the second pass at channel_freq = 0.22
+TB_FM = 32             # the fused chain's tb
+FM_NOISE = 0.01        # noise std per real dimension
+FM_SKIP = 4            # outputs before the fused-vs-composed comparison
+# #8 vs plain and vs composed (tests/test_pallas_iir_fm.py:102); composed in
+# 4 blocks vs one shot (tests/test_receivers.py:86)
+TOL_FM, TOL_FM_STREAM = 1e-5, 1e-3
+TOL_TONE = 0.003       # recovered tone frequency (tests/test_receivers.py:66)
+# the IIR cascade at benchmarks/tpu_iir_bench.py:42,56-62: order-4
+# Butterworth lowpass at 0.1 as 2 sections, C x N float32
+C_IIR, N_IIR = 64, 1 << 18
+# vs plain, and vs float64 sosfilt (tests/test_pallas_iir_fm.py:34)
+TOL_IIR = 1e-5
+# the QAM-16 modem: the entry() workload of __graft_entry__.py, then the
+# gates of tests/test_receivers.py:89-102
+NSYM_ENTRY, NSYM_GATE = 512, 2000
+TOL_MODEM_BER, TOL_MODEM_EVM = 0.01, 0.15
+
 # the card's published peaks (NVIDIA's H100 SXM data sheet): HBM bytes/s and
 # fp32 FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12
@@ -120,11 +155,17 @@ KERNELS = {   # wrapper name -> (source, the Pallas call it replaces)
             "libtsd_tpu/ops/pallas/ola.py:220"),
     "detfront": ("libtsd_tpu_torch/csrc/detfront.cu",
                  "libtsd_tpu/ops/pallas/detfront.py:132"),
+    "iir_cascade": ("libtsd_tpu_torch/csrc/iir.cu",
+                    "libtsd_tpu/ops/pallas/iir.py:147"),
+    "fm_chain": ("libtsd_tpu_torch/csrc/fm.cu",
+                 "libtsd_tpu/ops/pallas/fm.py:289"),
 }
 PATH_KERNELS = {"main": ("fir", "periodogram4096", "fir_periodogram4096",
                          "fft_pow2"),
                 "qam": ("demod_sb", "demod_sb_fused"),
-                "frame": ("ola", "detfront")}
+                "frame": ("ola", "detfront"),
+                "fm": ("fm_chain",),
+                "iir": ("iir_cascade",)}
 
 
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
@@ -990,6 +1031,257 @@ def frame_timings(sig, rxs, fp):
     return out, steps
 
 
+# ------------------------------------------------------- FM receiver
+
+
+def fm_signal(gen, dev, C: int, f0: float):
+    """C channels of N_FM samples made on the card: channel c carries a
+    tone of its own frequency fa_c = 0.002 + 0.016 c / C (cycles per audio
+    sample), amplitude 0.5, FM-modulated at the receiver's deviation (0.1
+    at the decimated rate) on the carrier f0 with a random phase, plus
+    noise FM_NOISE per dimension; the phase is summed in float64 cycles.
+    Returns (x complex64 (C, N_FM), fa)."""
+    from libtsd_tpu_torch.models.receivers import FmReceiverConfig
+    cfg = FmReceiverConfig(channel_freq=f0)
+    R = cfg.decim
+    fa = 0.002 + 0.016 * torch.arange(C, device=dev,
+                                      dtype=torch.float64) / C
+    n = torch.arange(N_FM, device=dev, dtype=torch.float64)
+    audio = 0.5 * torch.sin(2 * np.pi * (fa[:, None] / R) * n)
+    ph0 = torch.rand(C, 1, generator=gen, device=dev, dtype=torch.float64)
+    cyc = torch.remainder(f0 * n + ph0 + (cfg.deviation / R)
+                          * torch.cumsum(audio, 1), 1.0)
+    del audio
+    x = torch.polar(torch.ones((), device=dev),
+                    (2 * np.pi * cyc).to(torch.float32))
+    del cyc
+    w = torch.randn(2, C, N_FM, generator=gen, device=dev) * FM_NOISE
+    x = x + torch.complex(w[0], w[1])
+    torch.cuda.synchronize()
+    return x, fa
+
+
+def fm_path(x, f0: float, dev) -> dict:
+    """The FM chain as a user drives it: FmReceiver.step over the whole
+    block (composed: NCO mix, FirDecim, discriminator, Iir), then the fused
+    chain FmChain (kernel #8) on the same samples' planes."""
+    from libtsd_tpu_torch.models.receivers import FmReceiver, FmReceiverConfig
+    from libtsd_tpu_torch.ops.kernels.fm import FmChain
+    cfg = FmReceiverConfig(channel_freq=f0)
+    rx = FmReceiver.create(cfg, device=dev)
+    fc = FmChain(cfg.channel_freq, cfg.decim, cfg.chan_taps, cfg.deviation,
+                 cfg.deemph_fc, device=dev)
+    _, comp = rx.step(rx.init_for(x), x)
+    xr, xi = x.real.contiguous(), x.imag.contiguous()
+    fused = fc(xr, xi, tb=TB_FM)
+    torch.cuda.synchronize()
+    return dict(rx=rx, fc=fc, xr=xr, xi=xi, comp=comp, fused=fused, f0=f0)
+
+
+def _fm_plain(fp):
+    from libtsd_tpu_torch.ops.kernels.fm import fm_chain_plain
+    fc = fp["fc"]
+    return fm_chain_plain(fp["xr"], fp["xi"], fc.h, R=fc.R, f0=fc.f0,
+                          dev=fc.dev, b0=fc.b0, c=fc.c, p=fc.p, tb=TB_FM)
+
+
+def fm_checks(fp, x, fa, label: str) -> float:
+    """#8 against its plain version on the same full-width planes; #8
+    against the composed FmReceiver after FM_SKIP outputs; the composed
+    chain streamed in 4 blocks against one shot; every channel's recovered
+    tone at its own frequency.  Returns #8's max |error| vs plain."""
+    C = x.shape[0]
+    fused, comp = fp["fused"], fp["comp"]
+    if fused.shape != (C, N_FM // 4) or comp.shape != fused.shape:
+        raise AssertionError(f"fm {label}: shapes {tuple(fused.shape)}, "
+                             f"{tuple(comp.shape)}")
+    if not (torch.isfinite(fused).all() and torch.isfinite(comp).all()):
+        raise AssertionError(f"fm {label}: non-finite audio")
+    plain = _fm_plain(fp)
+    dp = (fused - plain).abs().max().item()
+    dc = (fused[:, FM_SKIP:] - comp[:, FM_SKIP:]).abs().max().item()
+    ok = dp < TOL_FM and dc < TOL_FM
+    print(f"check fm {label} {C} x {N_FM}: fm_chain (#8) vs plain max_abs_err="
+          f"{dp:.3e}, vs composed FmReceiver after {FM_SKIP} outputs "
+          f"max_abs_err={dc:.3e} (first {FM_SKIP}: "
+          f"{(fused[:, :FM_SKIP] - comp[:, :FM_SKIP]).abs().max().item():.3e})"
+          f", tol {TOL_FM:g} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"fm {label}: #8 vs plain or composed")
+    del plain
+    rx = fp["rx"]
+    st, ys = rx.init_for(x), []
+    for xb in x.chunk(4, dim=1):
+        st, yb = rx.step(st, xb)
+        ys.append(yb)
+    ds = (torch.cat(ys, 1) - comp).abs().max().item()
+    ok = ds < TOL_FM_STREAM
+    print(f"check fm {label}: composed FmReceiver in 4 blocks vs one shot "
+          f"max_abs_err={ds:.3e} tol {TOL_FM_STREAM:g} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"fm {label}: streamed vs one shot")
+    seg = fused[:, 1024:].double()
+    win = torch.hann_window(seg.shape[1], periodic=False, device=seg.device,
+                            dtype=torch.float64)
+    peak = torch.fft.rfft(seg * win).abs().argmax(1).double() / seg.shape[1]
+    df = (peak - fa).abs().max().item()
+    ok = df < TOL_TONE
+    print(f"check fm {label}: every channel's tone recovered at its own "
+          f"frequency, max |f_peak - f_tone| {df:.3e} cycles/sample "
+          f"(tones {fa[0].item():.5f}..{fa[-1].item():.5f}, bin "
+          f"{1 / seg.shape[1]:.2e}) tol {TOL_TONE:g} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"fm {label}: tone")
+    return dp
+
+
+def fm_timings(fp):
+    """The composed FmReceiver step and the fused chain (#8) beside its
+    plain version (CUDA events, median of 5 after a warm-up), and #8's
+    bound: 8 bytes read per input sample, 4 written per output, the taps;
+    its least work per input sample: the mix (6 flop and a sincos, counted
+    as 2), the polyphase FIR (K / R taps in re and im, 4 K / R flop), and
+    per output the discriminator (6 and an atan2, counted as 1), the
+    scaling (1) and the de-emphasis (4)."""
+    fc, rx, xr, xi = fp["fc"], fp["rx"], fp["xr"], fp["xi"]
+    C, N = xr.shape
+    K, R = fc.h.shape[0], fc.R
+    x = torch.complex(xr, xi)
+    ms_step = time_ms(lambda: rx.step(rx.init_for(x), x))
+    del x
+    torch.cuda.empty_cache()
+    ms_k = time_ms(lambda: fc(xr, xi, tb=TB_FM))
+    ms_p = time_ms(lambda: _fm_plain(fp))
+    torch.cuda.empty_cache()
+    bms, by = bound(8 * C * N + 4 * C * N // R + 4 * K,
+                    C * N * (8 + 4 * K / R) + C * N // R * 12)
+    print(f"time fm: composed FmReceiver.step {ms_step:.4f} ms "
+          f"({C * N / ms_step / 1e3:.1f} Msamples/s in, {C} x {N}); "
+          f"fm_chain (#8) kernel {ms_k:.4f} ms ({C * N / ms_k / 1e3:.1f} "
+          f"Msamples/s), plain {ms_p:.4f} ms, bound {bms:.4f} ms by {by}; "
+          f"library call none")
+    return {"fm_chain": (ms_k, ms_p, bms, by, None)}, ms_step
+
+
+# ------------------------------------------------------- IIR cascade
+
+
+def iir_phase(gen, dev) -> dict:
+    """Kernel #7 as ``benchmarks/tpu_iir_bench.py`` drives its Pallas
+    counterpart: an order-4 Butterworth lowpass at 0.1 as 2 sections over
+    C_IIR x N_IIR float32, one call, then 4 calls with the state
+    carried."""
+    from libtsd_tpu_torch.ops.iir_design import design_iir, zpk_to_sos
+    from libtsd_tpu_torch.ops.kernels.iir import IirCascade
+    sos, k = zpk_to_sos(design_iir(4, "lp", "butterworth", 0.1))
+    secs = [(sos[s, :3] * (k if s == 0 else 1.0), sos[s, 3:])
+            for s in range(sos.shape[0])]
+    casc = IirCascade(secs, device=dev)
+    x = torch.randn(C_IIR, N_IIR, generator=gen, device=dev)
+    y, st = casc(x)
+    sc, ys = None, []
+    for xb in x.chunk(4, dim=1):
+        yb, sc = casc(xb.contiguous(), sc)
+        ys.append(yb)
+    torch.cuda.synchronize()
+    sos_sc = sos.copy()
+    sos_sc[0, :3] *= k
+    return dict(casc=casc, x=x, y=y, st=st, ys=torch.cat(ys, 1), sts=sc,
+                sos=sos_sc)
+
+
+def iir_checks(ip) -> float:
+    """#7 against its plain version and float64 sosfilt (1e-5 of the
+    peak), and its 4-call stream bit-identical to one call.  Returns #7's
+    max |error| vs plain."""
+    import scipy.signal as ss
+    from libtsd_tpu_torch.ops.kernels.iir import iir_cascade_plain
+    casc, x, y = ip["casc"], ip["x"], ip["y"]
+    if not torch.isfinite(y).all():
+        raise AssertionError("iir: non-finite output")
+    yp, sp = iir_cascade_plain(x, casc.T, casc.S, casc.W, casc.M)
+    d = check(f"iir_cascade (#7) vs plain, {C_IIR} x {N_IIR}, 2 sections",
+              y, yp, TOL_IIR)
+    check("iir_cascade (#7) final state vs plain", ip["st"], sp, TOL_IIR)
+    ref = ss.sosfilt(ip["sos"], x.double().cpu().numpy(), axis=-1)
+    check("iir_cascade (#7) vs float64 scipy sosfilt", y,
+          torch.as_tensor(ref, device=y.device), TOL_IIR)
+    same = torch.equal(ip["ys"], y) and torch.equal(ip["sts"], ip["st"])
+    print(f"check iir_cascade (#7): 4 calls with the state carried vs one "
+          f"call bit-identical {same} {'ok' if same else 'FAIL'}")
+    if not same:
+        raise AssertionError("iir: streaming not bit-identical")
+    return d
+
+
+def iir_timings(ip) -> dict:
+    """#7 beside its plain version (CUDA events, median of 5 after a
+    warm-up), and its bound: x read and y written once (8 bytes a sample),
+    the state in and out; the least work is the direct-form recursion, 9
+    flop a sample and section."""
+    from libtsd_tpu_torch.ops.kernels.iir import iir_cascade_plain
+    casc, x = ip["casc"], ip["x"]
+    ms_k = time_ms(lambda: casc(x))
+    ms_p = time_ms(lambda: iir_cascade_plain(x, casc.T, casc.S, casc.W,
+                                             casc.M))
+    torch.cuda.empty_cache()
+    bms, by = bound(8 * x.numel() + 2 * 4 * C_IIR * casc.nsec * 8,
+                    9 * casc.nsec * x.numel())
+    print(f"time iir_cascade (#7): kernel {ms_k:.4f} ms "
+          f"({x.numel() / ms_k / 1e3:.1f} Msamples/s), plain {ms_p:.4f} ms, "
+          f"bound {bms:.4f} ms by {by}; library call none")
+    return {"iir_cascade": (ms_k, ms_p, bms, by, None)}
+
+
+# ------------------------------------------------------- QAM-16 modem
+
+
+def modem_phase(seed: int, dev) -> dict:
+    """Qam16Modem in both rx_modes: the entry() workload of
+    __graft_entry__.py (512 symbols from numpy's default_rng(0), transmit
+    then receive), then
+    NSYM_GATE symbols delayed by 1.3 samples held to the gates of
+    tests/test_receivers.py:89-102 (BER < 0.01 after 400 symbols, tail
+    EVM < 0.15).  Runs no kernel."""
+    from libtsd_tpu_torch.models.ber import cmp_bits
+    from libtsd_tpu_torch.models.receivers import Qam16Modem
+    from libtsd_tpu_torch.ops.fft import delay_signal
+    out = {}
+    for mode in ("composed", "fused"):
+        modem = Qam16Modem.create(osf=4, rx_mode=mode, device=dev)
+        bits = torch.as_tensor(np.random.default_rng(0).integers(
+            0, 2, 4 * NSYM_ENTRY), dtype=torch.int32, device=dev)
+        t0 = time.perf_counter()
+        rb, syms, mask, ev = modem.receive(modem.transmit(bits))
+        torch.cuda.synchronize()
+        t_entry = time.perf_counter() - t0
+        if not (torch.isfinite(torch.view_as_real(syms)).all()
+                and bool(torch.isfinite(ev))):
+            raise AssertionError(f"modem {mode}: non-finite entry output")
+        be = cmp_bits(bits, rb[mask.repeat_interleave(4)], max_lag=64)[0]
+        b2 = torch.as_tensor(np.random.default_rng(seed + 1).integers(
+            0, 2, 4 * NSYM_GATE), dtype=torch.int32, device=dev)
+        t0 = time.perf_counter()
+        rb2, syms2, mask2, ev2 = modem.receive(
+            delay_signal(modem.transmit(b2), 1.3))
+        torch.cuda.synchronize()
+        t_gate = time.perf_counter() - t0
+        rbv = rb2[mask2.repeat_interleave(4)]
+        ber, nerr, _ = cmp_bits(b2[4 * 400:], rbv[4 * 400:], max_lag=64)
+        ok = ber < TOL_MODEM_BER and float(ev2) < TOL_MODEM_EVM
+        print(f"check modem {mode}: entry() {NSYM_ENTRY} symbols EVM "
+              f"{float(ev):.4f} BER {be:.2e} ({t_entry:.2f} s); "
+              f"{NSYM_GATE} symbols delayed 1.3: BER {ber:.2e} ({nerr} "
+              f"errors) tol {TOL_MODEM_BER:g}, tail EVM {float(ev2):.4f} tol "
+              f"{TOL_MODEM_EVM:g} ({t_gate:.2f} s) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"modem {mode}: gates")
+        out[mode] = dict(entry_s=t_entry, gate_s=t_gate, evm=float(ev2),
+                         ber=ber)
+    return out
+
+
 def profile(mp, out_dir: str) -> None:
     """Optional phase: torch.profiler over 5 back-to-back calls of the
     fused int16/2 chain and of the composed path (Fir.step -> #2), after a
@@ -1077,6 +1369,7 @@ def main() -> int:
     errs = kernel_checks(h, G, gen, dev)
     torch.cuda.empty_cache()
 
+    t_phase = time.perf_counter()
     kernels.reset_launches()
     mp = main_path(h, gen, dev)
     launches = {k: v for k, v in kernels.launches().items()
@@ -1090,7 +1383,10 @@ def main() -> int:
     del mp
     torch.cuda.empty_cache()
 
+    print(f"phase main: {time.perf_counter() - t_phase:.1f} s")
+
     # the QAM-16 receive path (kernels #5 and #6)
+    t_phase = time.perf_counter()
     wf, bits, xq = qam_signal(gen, dev)
     kernels.reset_launches()
     qp = qam_path(wf, xq, dev)
@@ -1106,8 +1402,10 @@ def main() -> int:
 
     del xq, qp
     torch.cuda.empty_cache()
+    print(f"phase qam: {time.perf_counter() - t_phase:.1f} s")
 
     # the frame receiver (kernels #9 and #10)
+    t_phase = time.perf_counter()
     sig = frame_signal(gen, dev)
     rxs = frame_receivers(sig["fmt"], dev)
     kernels.reset_launches()
@@ -1129,6 +1427,51 @@ def main() -> int:
                 lambda rx=rx, xb=sig["x"][:, :n]: rx.step(rx.init_for(xb),
                                                           xb))
         profile_windows(windows, args.profile, calls=1)
+    del sig, rxs, fp
+    torch.cuda.empty_cache()
+    print(f"phase frame: {time.perf_counter() - t_phase:.1f} s")
+
+    # the FM receiver (kernel #8), then a second pass at channel_freq 0.22
+    t_phase = time.perf_counter()
+    xfm, fa = fm_signal(gen, dev, C_FM, 0.25)
+    kernels.reset_launches()
+    fmp = fm_path(xfm, 0.25, dev)
+    launches.update({k: v for k, v in kernels.launches().items()
+                     if k in PATH_KERNELS["fm"]})
+    errs["fm_chain"] = fm_checks(fmp, xfm, fa, "f0 0.25")
+    tfm, fm_step_ms = fm_timings(fmp)
+    tq.update(tfm)
+    if args.profile:
+        xr, xi, fc, rx = fmp["xr"], fmp["xi"], fmp["fc"], fmp["rx"]
+        profile_windows({
+            "fm_fused": lambda: fc(xr, xi, tb=TB_FM),
+            "fm_composed": lambda: rx.step(rx.init_for(xfm), xfm)},
+            args.profile, calls=3)
+    del xfm, fmp
+    torch.cuda.empty_cache()
+    x22, fa22 = fm_signal(gen, dev, C_FM22, 0.22)
+    errs["fm_chain"] = max(errs["fm_chain"], fm_checks(
+        fm_path(x22, 0.22, dev), x22, fa22, "f0 0.22"))
+    del x22
+    torch.cuda.empty_cache()
+    print(f"phase fm: {time.perf_counter() - t_phase:.1f} s")
+
+    # the IIR cascade (kernel #7)
+    t_phase = time.perf_counter()
+    kernels.reset_launches()
+    ip = iir_phase(gen, dev)
+    launches.update({k: v for k, v in kernels.launches().items()
+                     if k in PATH_KERNELS["iir"]})
+    errs["iir_cascade"] = iir_checks(ip)
+    tq.update(iir_timings(ip))
+    del ip
+    torch.cuda.empty_cache()
+    print(f"phase iir: {time.perf_counter() - t_phase:.1f} s")
+
+    # the QAM-16 modem, __graft_entry__.entry() (no kernel)
+    t_phase = time.perf_counter()
+    modem = modem_phase(args.seed, dev)
+    print(f"phase modem: {time.perf_counter() - t_phase:.1f} s")
 
     print("launches (each path): " + json.dumps(launches))
     missing = [k for k, v in launches.items() if v == 0]
@@ -1158,7 +1501,10 @@ def main() -> int:
                        "frame_step": {e: {"step_ms": v[0],
                                           "msamples_per_s": v[1],
                                           "channels": C_FRM, "n": v[2]}
-                                      for e, v in fsteps.items()}},
+                                      for e, v in fsteps.items()},
+                       "fm_step": {"composed_ms": fm_step_ms,
+                                   "channels": C_FM, "n": N_FM},
+                       "modem": modem},
                       f, indent=1)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

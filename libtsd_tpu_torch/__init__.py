@@ -6,11 +6,13 @@ This package imports ``torch`` and never ``jax`` or ``libtsd_tpu``.
 
 Layout (the JAX package's, with ``ops/kernels/`` for ``ops/pallas/``):
 
-* ``libtsd_tpu_torch.ops``    -- window, FIR and IIR design, FIR runtime,
-  FFT/PSD, resampling pieces, and the kernels.
+* ``libtsd_tpu_torch.ops``    -- window, FIR and IIR design, the FIR and IIR
+  runtime, FFT/PSD, resampling pieces, signals, random draws, and the
+  kernels.
 * ``libtsd_tpu_torch.models`` -- waveforms, modulator, carrier and clock
-  recovery, the decision-directed demodulators, BER tooling, the pattern
-  detector and the frame transmitter and receiver.
+  recovery, the demodulators, BER tooling, the pattern detector, the frame
+  transmitter and receiver, the analog modems, ``FmReceiver`` and
+  ``Qam16Modem``.
 * ``libtsd_tpu_torch.io``     -- ring buffer, re-blocking, IQ readers and
   the ``StreamRunner`` serving loop.
 * ``libtsd_tpu_torch.utils``  -- conversion of JAX-package parameters and

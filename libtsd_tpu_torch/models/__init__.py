@@ -1,5 +1,7 @@
 """Telecom models of the port: waveforms, modulator, carrier and clock
-recovery, the decision-directed demodulators, BER tooling, the pattern
-detector and the frame transmitter and receiver."""
-from . import (ber, bitstream, carrier_rec, clock_rec, demod,  # noqa: F401
-               demod_dec, demod_sb, detector, frame, modulator, waveform)
+recovery, the demodulators, BER tooling, the pattern detector, the frame
+transmitter and receiver, the analog modems and the FM and QAM-16
+receivers."""
+from . import (analog, ber, bitstream, carrier_rec, clock_rec,  # noqa: F401
+               clock_rec2, demod, demod_dec, demod_dec2, demod_sb, detector,
+               frame, modulator, receivers, waveform)

@@ -1,4 +1,4 @@
-"""Streaming filter runtime, FIR half (PyTorch).
+"""Streaming filter runtime (PyTorch).
 
 Ported from ``libtsd_tpu/ops/filter_rt.py``.  The FIR is the same banded
 Toeplitz product: frame the signal into rows of L = 128 samples, then
@@ -26,8 +26,17 @@ multiplied as fp32) and accumulated in fp32, as the MXU does.
 output residue) and "cuda" (the JAX package's "pallas": kernel #9,
 overlap-save, state = the last V inputs, ``tail_state`` True).
 
-Not ported yet: ``filtfilt`` and the recursive blocks other than
-``MovingAverage`` (see ROADMAP.md).
+The recursive half: ``ExpSmoother``, ``DcBlocker`` and order-1 ``Iir`` solve
+their first-order recursion by log-depth doubling (``_first_order_scan``:
+ceil(log2 n) passes of shifted multiply-add, the JAX package's
+``lax.associative_scan``); never by a cumprod/cumsum divide, whose a^-n
+overflows float32 within a few hundred samples at a pole of 0.73.
+``IirFrame`` restates the recursion over 128-sample frames as the same
+exact state-space algebra as the JAX package (``_iir_frame_mats``), the
+frame-to-frame state hop again by doubling (``_affine_matrix_scan``, k x k
+matmuls).  ``Iir`` of order >= 2 and ``Sos`` run a Python loop over the
+samples (the JAX package's ``lax.scan``): right, but only for test sizes.
+The fused SOS cascade on the card is kernel #7 (``ops.kernels.iir``).
 """
 from __future__ import annotations
 
@@ -43,7 +52,9 @@ from ..config import complex_dtype, device as _device, real_dtype
 
 __all__ = ["fir_toeplitz_mats", "fir_filter", "fir_filter_valid", "Fir",
            "DelayLine", "Decimator", "FirDecim", "MovingAverage", "OlaFft",
-           "FirFft", "OLA_ENGINES", "filter_signal"]
+           "FirFft", "OLA_ENGINES", "ExpSmoother", "DcBlocker", "Iir",
+           "IirFrame", "iir_filter", "sos_frame_chain", "Sos", "filter_signal",
+           "filtfilt"]
 
 _L = 128  # frame size
 PRECISIONS = ("highest", "split", "bf16")
@@ -389,6 +400,355 @@ class MovingAverage(Block):
         return xx[..., xx.shape[-1] - (self.K - 1):], y.to(x.dtype)
 
 
+class ExpSmoother(Block):
+    """First-order exponential smoother y = g x + (1 - g) y_prev (parity:
+    FiltreLExp, filtre-rt.cc:726-780).  State: the last output."""
+
+    def __init__(self, g: float, device="cuda"):
+        super().__init__()
+        self.register_buffer("g", torch.tensor(g, dtype=real_dtype,
+                                               device=_device(device)))
+
+    @classmethod
+    def create(cls, gamma: float, device="cuda") -> "ExpSmoother":
+        return cls(gamma, device=device)
+
+    def init(self):
+        return torch.zeros((), dtype=real_dtype, device=self.g.device)
+
+    def step(self, state, x):
+        y = _first_order_scan(1.0 - self.g, self.g * x, state)
+        return y[..., -1], y
+
+
+class DcBlocker(Block):
+    """DC blocker y[n] = r ((x[n] - x[n-1]) + y[n-1]) (parity: FiltreDC,
+    filtre-rt.cc:605-633).  State: (previous input, previous output)."""
+
+    def __init__(self, r: float, device="cuda"):
+        super().__init__()
+        self.register_buffer("r", torch.tensor(r, dtype=real_dtype,
+                                               device=_device(device)))
+
+    @classmethod
+    def create(cls, fc: float, device="cuda") -> "DcBlocker":
+        from .iir_design import lexp_coef
+        return cls(1.0 - lexp_coef(fc), device=device)
+
+    def init(self):
+        z = torch.zeros((), dtype=real_dtype, device=self.r.device)
+        return (z, z.clone())
+
+    def step(self, state, x):
+        x_prev, y_prev = state
+        xd = x - torch.cat([x_prev[..., None].expand(
+                                tuple(x.shape[:-1]) + (1,)),
+                            x[..., :-1]], dim=-1)
+        # seeded with y_prev itself: y[0] = r y_prev + r xd[0]
+        y = _first_order_scan(self.r, self.r * xd, y_prev)
+        return (x[..., -1], y[..., -1]), y
+
+
+def _first_order_scan(a, b: torch.Tensor, y0) -> torch.Tensor:
+    """Solve y[n] = a y[n-1] + b[n] along the last axis with y[-1] = y0,
+    by log-depth doubling: after the pass of shift s, y[n] holds the sum
+    over the last 2s terms and the multiplier a^(2s) (the JAX package's
+    associative scan with (a1, b1) o (a2, b2) = (a1 a2, a2 b1 + b2)).
+    ``a`` is a scalar (number or 0-d tensor); no cumprod divide."""
+    n = b.shape[-1]
+    a = torch.as_tensor(a, dtype=b.dtype, device=b.device)
+    y = b.clone()
+    y[..., :1] = y[..., :1] + a * torch.as_tensor(y0, device=b.device)[
+        ..., None]
+    m = a
+    s = 1
+    while s < n:
+        y = torch.cat([y[..., :s], y[..., s:] + m * y[..., :-s]], dim=-1)
+        m = m * m
+        s *= 2
+    return y
+
+
+class Iir(Block):
+    """Transposed direct-form-II IIR from (b, a) (parity: FiltreRII,
+    filtre-rt.cc:178-284).  Order 0 is a gain, order 1 the log-depth
+    scan, order >= 2 a Python loop over the samples.  State: the k delay
+    elements."""
+
+    def __init__(self, b: torch.Tensor, a: torch.Tensor):
+        super().__init__()
+        self.register_buffer("b", b)
+        self.register_buffer("a", a)
+
+    @classmethod
+    def create(cls, b, a, device="cuda") -> "Iir":
+        device = _device(device)
+        b = np.atleast_1d(np.asarray(b, np.float64))
+        a = np.atleast_1d(np.asarray(a, np.float64))
+        b, a = b / a[0], a / a[0]
+        n = max(len(b), len(a))
+        b = np.pad(b, (0, n - len(b)))
+        a = np.pad(a, (0, n - len(a)))
+        return cls(torch.as_tensor(b, dtype=real_dtype, device=device),
+                   torch.as_tensor(a, dtype=real_dtype, device=device))
+
+    @property
+    def order(self) -> int:
+        return self.b.shape[0] - 1
+
+    def init(self):
+        return torch.zeros((self.order,), dtype=real_dtype,
+                           device=self.b.device)
+
+    def init_for(self, x: torch.Tensor):
+        dt = complex_dtype if x.is_complex() else real_dtype
+        return torch.zeros(tuple(x.shape[:-1]) + (self.order,), dtype=dt,
+                           device=self.b.device)
+
+    def step(self, state, x):
+        order = self.order
+        if order == 0:
+            return state, self.b[0] * x
+        if order == 1:
+            # y[n] = b0 x[n] + w[n-1]; w[n] = -a1 w[n-1] + (b1 - a1 b0) x[n]
+            b0, b1, a1 = self.b[0], self.b[1], self.a[1]
+            w = _first_order_scan(-a1, (b1 - a1 * b0) * x, state[..., 0])
+            wprev = torch.cat([state[..., 0:1].expand(
+                tuple(x.shape[:-1]) + (1,)), w[..., :-1]], dim=-1)
+            return w[..., -1:], b0 * x + wprev
+        return self._scan_step(state, x)
+
+    def _scan_step(self, state, x):
+        b, a = self.b, self.a
+        w = state
+        ys = []
+        for i in range(x.shape[-1]):
+            xn = x[..., i]
+            yn = b[0] * xn + w[..., 0]
+            w = (torch.cat([w[..., 1:], torch.zeros_like(w[..., :1])], dim=-1)
+                 + b[1:] * xn[..., None] - a[1:] * yn[..., None])
+            ys.append(yn)
+        return w, torch.stack(ys, dim=-1)
+
+
+def _iir_frame_mats(b: np.ndarray, a: np.ndarray, L: int = _L):
+    """Frame operators of an LTI recursion, float64 on the host, returned
+    as float32 (a copy of the JAX package's).
+
+    Controller-canonical state s before each sample: s[n+1] = A s[n] +
+    B x[n], y[n] = C s[n] + D x[n].  Over an L-sample frame from state s0,
+    y[j] = (C A^j) s0 + sum_{i<=j} h[j-i] x[i] and s_end = A^L s0 +
+    sum_i A^(L-1-i) B x[i].  Returns T (L, L) the in-frame Toeplitz, S
+    (L, k) state -> output, W (k, L) with W[:, m] = A^m B, and the powers
+    Apow (L+1, k, k) of A."""
+    b = np.atleast_1d(np.asarray(b, np.float64))
+    a = np.atleast_1d(np.asarray(a, np.float64))
+    b, a = b / a[0], a / a[0]
+    k = max(len(a), len(b)) - 1
+    if k == 0:
+        raise ValueError("IirFrame needs order >= 1 (a pure gain has no "
+                         "state); use iir_filter or Iir for order 0.")
+    a = np.pad(a, (0, k + 1 - len(a)))
+    bp = np.pad(b, (0, k + 1 - len(b)))
+    A = np.zeros((k, k))
+    A[0, :] = -a[1:]
+    A[1:, :-1] = np.eye(k - 1)
+    B = np.zeros(k)
+    B[0] = 1.0
+    C = bp[1:] - a[1:] * bp[0]
+    D = bp[0]
+    Apow = np.empty((L + 1, k, k))
+    Apow[0] = np.eye(k)
+    for m in range(1, L + 1):
+        Apow[m] = A @ Apow[m - 1]
+    h = np.empty(L)
+    h[0] = D
+    for m in range(1, L):
+        h[m] = C @ Apow[m - 1] @ B
+    i = np.arange(L)
+    idx = i[:, None] - i[None, :]
+    T = np.where(idx >= 0, h[np.clip(idx, 0, L - 1)], 0.0)
+    S = np.stack([C @ Apow[j] for j in range(L)])
+    W = np.stack([Apow[m] @ B for m in range(L)], axis=1)
+    f32 = lambda M: np.asarray(M, np.float32)   # noqa: E731
+    return f32(T), f32(S), f32(W), f32(Apow)
+
+
+def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    with _fp32_matmul():
+        return torch.matmul(a, b)
+
+
+def _affine_matrix_scan(M: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """s_m = M s_{m-1} + u_m over the frame axis of u (..., nf, k), s_{-1}
+    folded into u_0; returns every s_m.  Log-depth doubling: the pass of
+    shift s adds M^s s_{m-s}, then squares the power (k x k matmuls)."""
+    nf = u.shape[-2]
+    s = u
+    P = M
+    sh = 1
+    while sh < nf:
+        s = torch.cat([s[..., :sh, :],
+                       s[..., sh:, :] + _mm(s[..., :-sh, :], P.T)], dim=-2)
+        P = _mm(P, P)
+        sh *= 2
+    return s
+
+
+class IirFrame(Block):
+    """Frame-parallel IIR (the JAX package's runtime for order >= 2): the
+    recursion as exact state-space algebra over L = 128-sample frames
+    (``_iir_frame_mats``): in-frame work is one (nf, L) @ (L, L) product,
+    the k-dimensional state hop between frames a log-depth scan.  Same
+    outputs and streaming protocol as ``Iir``.  State: the k-dim canonical
+    state vector.  Step lengths are multiples of 128."""
+
+    def __init__(self, T, S, Wf, M):
+        super().__init__()
+        self.register_buffer("T", T)     # (L, L) in-frame Toeplitz
+        self.register_buffer("S", S)     # (L, k) state -> output
+        self.register_buffer("Wf", Wf)   # (L, k) flipped input -> state
+        self.register_buffer("M", M)     # (k, k) = A^L
+
+    @classmethod
+    def create(cls, b, a, L: int = _L, device="cuda") -> "IirFrame":
+        device = _device(device)
+        T, S, W, Apow = _iir_frame_mats(b, a, L)
+        t = lambda v: torch.as_tensor(np.ascontiguousarray(v),   # noqa
+                                      device=device)
+        return cls(t(T), t(S), t(W[:, ::-1].T), t(Apow[L]))
+
+    @property
+    def order(self) -> int:
+        return self.S.shape[1]
+
+    def init(self):
+        return torch.zeros((self.order,), dtype=real_dtype,
+                           device=self.T.device)
+
+    def init_for(self, x: torch.Tensor):
+        dt = complex_dtype if x.is_complex() else real_dtype
+        return torch.zeros(tuple(x.shape[:-1]) + (self.order,), dtype=dt,
+                           device=self.T.device)
+
+    def step(self, state, x):
+        L = self.T.shape[0]
+        n = x.shape[-1]
+        if n % L:
+            raise ValueError(f"IirFrame.step needs len(x) % {L} == 0, "
+                             f"got {n}")
+        if x.is_complex():
+            sr, yr = self.step(state.real, x.real)
+            si, yi = self.step(state.imag, x.imag)
+            return torch.complex(sr, si), torch.complex(yr, yi)
+        x = x.to(real_dtype)
+        state = state.to(real_dtype)
+        xf = x.reshape(tuple(x.shape[:-1]) + (n // L, L))
+        u = _mm(xf, self.Wf)
+        u = torch.cat([u[..., :1, :] + _mm(state[..., None, :], self.M.T),
+                       u[..., 1:, :]], dim=-2)
+        s_end = _affine_matrix_scan(self.M, u)
+        s_start = torch.cat([state[..., None, :], s_end[..., :-1, :]], dim=-2)
+        y = _mm(xf, self.T.T) + _mm(s_start, self.S.T)
+        return s_end[..., -1, :], y.reshape(x.shape)
+
+
+def iir_filter(b, a, x: torch.Tensor) -> torch.Tensor:
+    """One-shot IIR, zero initial state, through ``IirFrame`` on x's
+    device.  x is padded to a multiple of 128 inside (zero padding does not
+    change the first len(x) outputs).  Leading zeros of b are a pure delay
+    (filter with the trimmed numerator, then shift); order > 4 is factored
+    into second-order sections (``sos_frame_chain``), as the JAX package
+    does for float32 conditioning."""
+    x = torch.as_tensor(x)
+    n = x.shape[-1]
+    a_np = np.atleast_1d(np.asarray(a, np.float64))
+    b_np = np.atleast_1d(np.asarray(b, np.float64))
+    nz = np.flatnonzero(b_np)
+    if nz.size == 0:
+        return torch.zeros_like(x)
+    d = int(nz[0])
+    if d:
+        y = iir_filter(b_np[d:], a_np, x)
+        return F.pad(y, (d, 0))[..., :n]
+    order = max(len(a_np), len(b_np)) - 1
+    if order == 0:
+        return (b_np[0] / a_np[0]) * x
+    if order > 4:
+        from .iir_design import ZPK, zpk_to_sos
+        zpk = ZPK(z=np.roots(b_np / b_np[0]), p=np.roots(a_np / a_np[0]),
+                  k=float(b_np[0] / a_np[0]))
+        sos, k = zpk_to_sos(zpk)
+        blk = sos_frame_chain(sos, k, device=x.device)
+    else:
+        blk = IirFrame.create(b_np, a_np, device=x.device)
+    xp = F.pad(x, (0, (-n) % _L))
+    _, y = blk.step(blk.init_for(xp), xp)
+    return y[..., :n]
+
+
+def sos_frame_chain(sos, k: float = 1.0, L: int = _L, device="cuda"):
+    """Each second-order section as an ``IirFrame``, composed with
+    ``Chain`` (the gain k on the first section)."""
+    from ..block import Chain
+    sos = np.asarray(sos, np.float64)
+    return Chain([IirFrame.create(sos[s, :3] * (k if s == 0 else 1.0),
+                                  sos[s, 3:], L=L, device=device)
+                  for s in range(sos.shape[0])])
+
+
+class Sos(Block):
+    """Cascade of second-order sections, transposed DF-II each, one
+    Python loop over the samples (parity: SOIS/ChaineSOIS/filtre_sois,
+    filtre-rt.cc:295-581).  sos (nsec, 6) rows [b0 b1 b2 1 a1 a2]; the
+    gain k is applied once at the input.  State (..., nsec, 2)."""
+
+    def __init__(self, sos: torch.Tensor, k: torch.Tensor):
+        super().__init__()
+        self.register_buffer("sos", sos)
+        self.register_buffer("k", k)
+
+    @classmethod
+    def create(cls, sos, k: float = 1.0, device="cuda") -> "Sos":
+        device = _device(device)
+        return cls(torch.as_tensor(np.asarray(sos, np.float64),
+                                   dtype=real_dtype, device=device),
+                   torch.tensor(k, dtype=real_dtype, device=device))
+
+    @classmethod
+    def from_zpk(cls, zpk, device="cuda") -> "Sos":
+        from .iir_design import zpk_to_sos
+        sos, k = zpk_to_sos(zpk)
+        return cls.create(sos, k, device=device)
+
+    def init(self):
+        return torch.zeros((self.sos.shape[0], 2), dtype=real_dtype,
+                           device=self.sos.device)
+
+    def init_for(self, x: torch.Tensor):
+        dt = complex_dtype if x.is_complex() else real_dtype
+        return torch.zeros(tuple(x.shape[:-1]) + (self.sos.shape[0], 2),
+                           dtype=dt, device=self.sos.device)
+
+    def step(self, state, x):
+        sos = self.sos
+        b0, b1, b2 = sos[:, 0], sos[:, 1], sos[:, 2]
+        a1, a2 = sos[:, 4], sos[:, 5]
+        w = state
+        ys = []
+        for i in range(x.shape[-1]):
+            v = self.k * x[..., i]
+            new_w = []
+            for s in range(sos.shape[0]):
+                y = b0[s] * v + w[..., s, 0]
+                new_w.append(torch.stack([b1[s] * v - a1[s] * y + w[..., s, 1],
+                                          b2[s] * v - a2[s] * y], dim=-1))
+                v = y
+            w = torch.stack(new_w, dim=-2)
+            ys.append(v)
+        return w, torch.stack(ys, dim=-1)
+
+
 OLA_ENGINES = ("torch", "cuda")
 _JAX_OLA_ENGINES = {"xla": "torch", "pallas": "cuda"}
 
@@ -525,20 +885,21 @@ def _engine_error(engine: str) -> str:
 def _as_design(h):
     """Normalize a filter spec: taps -> FIR; (b, a) tuple or ZPK -> IIR."""
     if isinstance(h, tuple) and len(h) == 2:
-        return "iir"
+        return ("iir", h[0], h[1])
     if hasattr(h, "to_ba") and hasattr(h, "p"):
-        return "iir"
-    return "fir"
+        b, a = h.to_ba()
+        return ("iir", b, a)
+    return ("fir", h, None)
 
 
 def filter_signal(h, x: torch.Tensor, mode: str = "direct") -> torch.Tensor:
-    """One-shot filtering.  h: FIR taps; mode="fft" runs the OLA FFT path
-    (``OlaFft``, "torch" engine, on x's device).  IIR designs are not
-    ported yet and raise."""
-    if _as_design(h) == "iir":
-        raise NotImplementedError(
-            "IIR filtering (iir_filter, IirFrame, Sos) is not ported yet: "
-            "ROADMAP.md slice 6")
+    """One-shot filtering (parity: the filtrer one-shot wrappers,
+    filtrage.hpp:1684-1744).  h: FIR taps, a (b, a) tuple or a ZPK design
+    (IIR, through ``iir_filter``); mode="fft" runs the OLA FFT path
+    (``OlaFft``, "torch" engine, on x's device; FIR only)."""
+    kind, b, a = _as_design(h)
+    if kind == "iir":
+        return iir_filter(b, a, x)
     if mode == "fft":
         from ..block import pad_to_multiple
         x = torch.as_tensor(x)
@@ -550,3 +911,13 @@ def filter_signal(h, x: torch.Tensor, mode: str = "direct") -> torch.Tensor:
     if mode != "direct":
         raise ValueError(f"mode must be 'direct' or 'fft', got {mode!r}")
     return fir_filter(h, x)
+
+
+def filtfilt(h, x: torch.Tensor) -> torch.Tensor:
+    """Zero-phase forward-backward filtering, FIR or IIR (parity:
+    filtfilt, filtrage.hpp:1663-1782)."""
+    kind, b, a = _as_design(h)
+
+    def one(v):
+        return iir_filter(b, a, v) if kind == "iir" else fir_filter(h, v)
+    return one(one(x).flip(-1)).flip(-1)

@@ -6,8 +6,8 @@ A wrapper given a CPU tensor runs the plain version; given a CUDA tensor it
 launches the kernel or raises.  Each wrapper counts its launches in a plain
 integer attribute, ``wrapper.launches``.
 """
-from . import (chain, demod_sb, detfront, fft, fir, ola,  # noqa: F401
-               periodogram)
+from . import (chain, demod_sb, detfront, fft, fir, fm, iir,  # noqa: F401
+               ola, periodogram)
 
 WRAPPERS = {
     "fir": fir.fir_kernel,
@@ -18,6 +18,8 @@ WRAPPERS = {
     "demod_sb_fused": demod_sb.demod_sb_fused,
     "ola": ola.ola_stream,
     "detfront": detfront.detfront,
+    "iir_cascade": iir.iir_cascade,
+    "fm_chain": fm.fm_chain,
 }
 
 

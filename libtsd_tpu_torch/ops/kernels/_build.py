@@ -35,6 +35,7 @@ P = ctypes.c_void_p
 I = ctypes.c_int
 I64 = ctypes.c_longlong
 F32 = ctypes.c_float
+F64 = ctypes.c_double
 
 # C entry points: name -> argument types (every one returns cudaError_t)
 SIGNATURES = {
@@ -49,6 +50,8 @@ SIGNATURES = {
                            P],
     "ola_f32": [P, P, P, P, I, I64, I, I, P],
     "detfront_f32": [P, P, P, P, P, P, P, I, I, I, I, I, P],
+    "iir_cascade_f32": [P, P, P, P, P, P, P, P, I, I64, I, P],
+    "fm_chain_f32": [P, P, P, P, P, I, I64, I, I, F64, F32, F32, F32, F32, P],
 }
 
 _lock = threading.Lock()

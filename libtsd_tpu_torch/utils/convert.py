@@ -19,7 +19,10 @@ from ..ops.resample import Interpolator
 
 __all__ = ["fir_from_jax", "waveform_from_jax", "demod_sb_from_jax",
            "demod_state_from_jax", "detector_from_jax", "receiver_from_jax",
-           "receiver_state_from_jax"]
+           "receiver_state_from_jax", "iir_frame_from_jax", "sos_from_jax",
+           "iir_cascade_from_jax", "fm_chain_from_jax",
+           "fm_receiver_from_jax", "fm_receiver_state_from_jax",
+           "qam16_modem_from_jax"]
 
 # the JAX package's batched engines -> the port's
 _ENGINES = {"auto": "auto", "xla": "auto", "pallas": "cuda",
@@ -41,6 +44,15 @@ def fir_from_jax(src, device="cuda") -> Fir:
          else torch.as_tensor(G_.astype(np.float32)))
     return Fir(G.to(_device(device)), K=int(_field(src, "K")),
                precision=str(_field(src, "precision")))
+
+
+def _tensor(a, device, dtype=None) -> torch.Tensor:
+    return torch.as_tensor(np.array(a), dtype=dtype, device=device)
+
+
+def _interp_from_jax(itrp, device) -> Interpolator:
+    return Interpolator(_tensor(itrp.lut, device, torch.float32),
+                        K=int(itrp.K), delay_=float(itrp.delay_))
 
 
 def waveform_from_jax(wf, device="cuda"):
@@ -65,9 +77,8 @@ def demod_sb_from_jax(dd, device="cuda"):
     fields = dataclasses.asdict(dd.cfg)
     fields["engine"] = _ENGINES[fields["engine"]]
     cfg = SBDemodConfig(**fields)
-    lut = torch.as_tensor(np.array(dd.itrp.lut, np.float32), device=device)
-    itrp = Interpolator(lut, K=int(dd.itrp.K), delay_=float(dd.itrp.delay_))
-    return DecisionDemodSB(itrp, fir_from_jax(dd.mf, device),
+    return DecisionDemodSB(_interp_from_jax(dd.itrp, device),
+                           fir_from_jax(dd.mf, device),
                            waveform_from_jax(dd.wf, device), cfg)
 
 
@@ -142,8 +153,7 @@ def receiver_from_jax(rx, device="cuda"):
                     real_output=m.real_output, ncoefs=m.ncoefs)
     fmt = FrameFormat(modulation=mod, header_bits=tuple(rx.fmt.header_bits),
                       payload_bits=int(rx.fmt.payload_bits))
-    lut = torch.as_tensor(np.array(rx.itp.lut, np.float32), device=device)
-    itp = Interpolator(lut, K=int(rx.itp.K), delay_=float(rx.itp.delay_))
+    itp = _interp_from_jax(rx.itp, device)
     pll = Cpll(CpllConfig(**dataclasses.asdict(rx.pll.cfg)), wf=wf)
     return Receiver(det=detector_from_jax(rx.det, device),
                     mf=fir_from_jax(rx.mf, device), pll=pll, wf=wf,
@@ -171,3 +181,109 @@ def receiver_state_from_jax(state: Mapping, device="cuda") -> dict:
                                 for f in dataclasses.fields(Detection)})
         return torch.as_tensor(np.array(a), device=device)
     return conv(state)
+
+
+# ------------------------------------------------ the FM and IIR slice
+
+
+def iir_frame_from_jax(blk, device="cuda"):
+    """The port's ``IirFrame`` from a JAX one (its T, S, Wf, M)."""
+    from ..ops.filter_rt import IirFrame
+    device = _device(device)
+    return IirFrame(*(_tensor(getattr(blk, k), device, torch.float32)
+                      for k in ("T", "S", "Wf", "M")))
+
+
+def sos_from_jax(blk, device="cuda"):
+    """The port's ``Sos`` from a JAX one (its sections and gain)."""
+    from ..ops.filter_rt import Sos
+    device = _device(device)
+    return Sos(_tensor(blk.sos, device, torch.float32),
+               _tensor(blk.k, device, torch.float32))
+
+
+def iir_cascade_from_jax(casc, device="cuda"):
+    """The port's ``IirCascade`` (kernel #7) from a JAX
+    ``IirCascadePallas``: its stacked operators, the same layout."""
+    from ..ops.kernels.iir import IirCascade
+    device = _device(device)
+    return IirCascade.from_operators(
+        *(_tensor(getattr(casc, k), device, torch.float32)
+          for k in ("T", "S", "W", "M")), k=int(casc.k))
+
+
+def fm_chain_from_jax(fm, device="cuda"):
+    """The port's ``FmChain`` (kernel #8) from a JAX ``FmChainPallas``.
+    The JAX class keeps operators, not designs: the channel taps are read
+    back from its strided Toeplitz factors G (trailing zeros dropped) and
+    the de-emphasis from the first row of its in-frame Toeplitz T, whose
+    entries are the impulse response b0, c, c p, ... (float32 values)."""
+    from ..ops.kernels.fm import FmChain, _L
+    device = _device(device)
+    G = np.array(fm.G[0], np.float64)            # (Dr, L, L)
+    R = int(fm.R)
+    r_min = -(((_L - 1) * R) // _L)
+    r_max = G.shape[0] - 1 + r_min
+    h = np.zeros((r_max + 1) * _L)
+    for kk in range(len(h)):                     # h[k] = G[r - r_min][u, i]
+        r = kk // _L
+        i = -(-(kk - r * _L) // R)
+        h[kk] = G[r - r_min, i * R - (kk - r * _L), i]
+    h = h[:np.flatnonzero(h)[-1] + 1]
+    t = np.array(fm.T[0, 0], np.float64)         # (b0, c, c p, ...)
+    out = FmChain(fm.f0, R, len(h), fm.dev, 0.0, chan_h=h, device=device)
+    out.b0, out.c = float(t[0]), float(t[1])
+    out.p = float(t[2] / t[1]) if t[1] else 0.0
+    return out
+
+
+def fm_receiver_from_jax(rx, device="cuda"):
+    """The port's ``FmReceiver`` from a JAX one: the channel filter's
+    polyphase taps, the de-emphasis (b, a) and the configuration."""
+    from ..models.receivers import FmReceiver, FmReceiverConfig
+    from ..ops.filter_rt import FirDecim, Iir
+    device = _device(device)
+    cf = rx.chan_filt
+    chan = FirDecim(_tensor(cf.P, device, torch.float32), K=int(cf.K),
+                    R=int(cf.R))
+    de = Iir(_tensor(rx.deemph.b, device, torch.float32),
+             _tensor(rx.deemph.a, device, torch.float32))
+    return FmReceiver(chan, de,
+                      FmReceiverConfig(**dataclasses.asdict(rx.cfg)))
+
+
+def fm_receiver_state_from_jax(state: Mapping, device="cuda") -> dict:
+    """A JAX ``FmReceiver`` state as the port's, key for key and shape for
+    shape: ``nco``, ``chan`` (complex input tail), ``prev_ri``, ``de``."""
+    device = _device(device)
+    return {k: _tensor(v, device) for k, v in state.items()}
+
+
+def qam16_modem_from_jax(m, device="cuda"):
+    """The port's ``Qam16Modem`` from a JAX one: waveform, modulator
+    configuration, matched filter, clock recovery (``ClockRec2`` or
+    ``ClockRec``, with its interpolator table), PLL configuration, the
+    fused ``DecisionDemod2``, ``osf`` and ``rx_mode``."""
+    from ..models.carrier_rec import Cpll, CpllConfig
+    from ..models.clock_rec import ClockRec, ClockRecConfig
+    from ..models.clock_rec2 import ClockRec2
+    from ..models.demod_dec import DecDemodConfig
+    from ..models.demod_dec2 import DecisionDemod2
+    from ..models.modulator import ModConfig, Modulator
+    from ..models.receivers import Qam16Modem
+    device = _device(device)
+    wf = waveform_from_jax(m.wf, device)
+    c = m.mod.config
+    mod = Modulator.create(ModConfig(wf=wf, fe=c.fe, fi=c.fi, fsymb=c.fsymb,
+                                     real_output=c.real_output,
+                                     ncoefs=c.ncoefs), device=device)
+    crc = ClockRecConfig(**dataclasses.asdict(m.cr.cfg))
+    kind = ClockRec2 if type(m.cr).__name__ == "ClockRec2" else ClockRec
+    cr = kind(_interp_from_jax(m.cr.itrp, device), crc)
+    pll = Cpll(CpllConfig(**dataclasses.asdict(m.pll.cfg)), wf=wf)
+    d = m.dd2
+    dd2 = DecisionDemod2(_interp_from_jax(d.itrp, device),
+                         fir_from_jax(d.mf, device), wf,
+                         DecDemodConfig(**dataclasses.asdict(d.cfg)))
+    return Qam16Modem(wf, mod, fir_from_jax(m.mf, device), cr, pll, dd2,
+                      osf=int(m.osf), rx_mode=str(m.rx_mode))

@@ -410,3 +410,130 @@ def test_frame_kernels_without_build_raise(dev, tmp_path, monkeypatch):
                                       device=dev), H, 64, Nf)
     with pytest.raises(RuntimeError, match="nvcc"):
         fr.step(fr.init_for(x[:, :1024]), x[:, :1024])
+
+
+# ------------------------------------------- #7 iir cascade, #8 fm chain
+# Gates: #7 against its plain version to 1e-5 of the peak and against
+# float64 scipy sosfilt to 1e-5 of the peak (the JAX gate,
+# tests/test_pallas_iir_fm.py:33-34), streaming bit-identical to one call
+# (tests/test_pallas_iir_fm.py:37-48); #8 against its plain version and
+# against the composed FmReceiver to 1e-5 absolute after the first 4
+# outputs (tests/test_pallas_iir_fm.py:101-102).  Both sides fp32; they
+# differ in summation order and FMA contraction.
+
+def _butter_sections(order, fc, typ="lp"):
+    from libtsd_tpu_torch.ops.iir_design import design_iir, zpk_to_sos
+    sos, k = zpk_to_sos(design_iir(order, typ, "butterworth", fc))
+    return [(sos[s, :3] * (k if s == 0 else 1.0), sos[s, 3:])
+            for s in range(sos.shape[0])], sos, k
+
+
+@pytest.mark.parametrize("order,C,N,tb", [(4, 3, 128 * 64 * 3, 64),
+                                          (2, 5, 128 * 16 * 5, 16),
+                                          (8, 2, 128 * 64, 8)])
+def test_iir_cascade_kernel(dev, order, C, N, tb):
+    """#7 against its plain version and float64 sosfilt, from a random
+    carried state and from zeros."""
+    import scipy.signal as ss
+    from libtsd_tpu_torch.ops.kernels import iir
+    secs, sos, k = _butter_sections(order, 0.1)
+    casc = iir.IirCascade(secs, device=dev)
+    g = torch.Generator(device=dev).manual_seed(order)
+    x = torch.randn(C, N, generator=g, device=dev)
+    st0 = torch.randn(C, casc.nsec, 8, generator=g, device=dev)
+    st0[..., casc.k:] = 0
+    for st in (None, st0):
+        before = iir.iir_cascade.launches
+        yk, sk = casc(x, st, tb=tb)
+        assert iir.iir_cascade.launches == before + 1
+        yp, sp = iir.iir_cascade_plain(x, casc.T, casc.S, casc.W, casc.M,
+                                       st, tb=tb)
+        assert rel(yk, yp) < 1e-5
+        assert rel(sk, sp) < 1e-5
+    sc = sos.copy()
+    sc[0, :3] *= k
+    ref = ss.sosfilt(sc, x.double().cpu().numpy(), axis=-1)
+    y = casc(x, tb=tb)[0].cpu().numpy()
+    assert np.abs(y - ref).max() / np.abs(ref).max() < 1e-5
+
+
+def test_iir_cascade_streaming_bit_identical_on_card(dev):
+    """4 calls with the state carried are bit-identical to one call."""
+    from libtsd_tpu_torch.ops.kernels import iir
+    secs, _, _ = _butter_sections(4, 0.1)
+    casc = iir.IirCascade(secs, device=dev)
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn(4, 128 * 64 * 8, generator=g, device=dev)
+    y1, s1 = casc(x)
+    st, ys = None, []
+    for xb in x.chunk(4, dim=1):
+        yb, st = casc(xb.contiguous(), st)
+        ys.append(yb)
+    assert torch.equal(torch.cat(ys, 1), y1) and torch.equal(st, s1)
+
+
+@pytest.mark.parametrize("f0,deemph,C,N", [(0.25, 0.05, 3, 4 * 4096 * 3),
+                                           (0.22, 0.05, 2, 4 * 4096 * 2),
+                                           (0.1, 0.0, 5, 4 * 4096),
+                                           (0.3, 0.3, 2, 4 * 128 * 9)])
+def test_fm_chain_kernel(dev, f0, deemph, C, N):
+    """#8 against its plain version across several blocks of 1024 outputs
+    (the chained de-emphasis carry) and a ragged last block."""
+    from libtsd_tpu_torch.ops.kernels import fm
+    chain_ = fm.FmChain(f0, 4, 63, 0.1, deemph, device=dev)
+    g = torch.Generator(device=dev).manual_seed(C)
+    xr = torch.randn(C, N, generator=g, device=dev)
+    xi = torch.randn(C, N, generator=g, device=dev)
+    tb = next(t for t in (32, 8, 1) if N % (t * 128 * 4) == 0)
+    before = fm.fm_chain.launches
+    yk = chain_(xr, xi, tb=tb)
+    assert fm.fm_chain.launches == before + 1
+    yp = fm.fm_chain_plain(xr, xi, chain_.h, R=4, f0=f0, dev=0.1,
+                           b0=chain_.b0, c=chain_.c, p=chain_.p, tb=tb)
+    torch.cuda.synchronize()
+    assert yk.shape == (C, N // 4)
+    # random input: |z| near 0 makes a few discriminator outputs fragile,
+    # so hold the bulk to 1e-5 and every output to the de-emphasised jump
+    d = (yk - yp).abs()
+    assert torch.quantile(d.flatten().cpu(), 0.999).item() < 1e-5
+
+
+@pytest.mark.parametrize("f0", [0.25, 0.22])
+def test_fm_chain_matches_fm_receiver_on_card(dev, f0):
+    """#8 against the composed FmReceiver on an FM tone within 1e-5 after
+    the first 4 outputs (tests/test_pallas_iir_fm.py:79-102)."""
+    from libtsd_tpu_torch.models.receivers import FmReceiver, FmReceiverConfig
+    from libtsd_tpu_torch.ops.kernels import fm
+    cfg = FmReceiverConfig(channel_freq=f0)
+    rx = FmReceiver.create(cfg, device=dev)
+    N, C = 4 * 32 * 128 * 4, 3
+    n = np.arange(N)
+    rng = np.random.default_rng(1)
+    audio = 0.4 * np.sin(2 * np.pi * 0.002 * n)
+    ph = 2 * np.pi * np.cumsum(cfg.deviation / cfg.decim * audio)
+    car = np.exp(1j * (2 * np.pi * np.mod(f0 * n, 1.0) + ph))
+    x = np.stack([car * np.exp(1j * a) for a in (0.3, 2.0, 4.0)])
+    x = (x + 0.001 * (rng.standard_normal((C, N))
+                      + 1j * rng.standard_normal((C, N)))).astype(np.complex64)
+    xd = torch.as_tensor(x, device=dev)
+    _, y_ref = rx.step(rx.init_for(xd), xd)
+    fc = fm.FmChain(f0, 4, 63, 0.1, 0.05, device=dev)
+    y = fc(xd.real.contiguous(), xd.imag.contiguous())
+    assert (y[:, 4:] - y_ref[:, 4:]).abs().max().item() < 1e-5
+
+
+def test_fm_iir_kernels_without_build_raise(dev, tmp_path, monkeypatch):
+    """No fallback: CUDA tensors with no kernel library (no nvcc) raise
+    instead of running the plain versions of #7 and #8."""
+    from libtsd_tpu_torch.ops.kernels import _build, fm, iir
+    casc = iir.IirCascade(_butter_sections(2, 0.1)[0], device=dev)
+    chain_ = fm.FmChain(0.25, 4, 63, 0.1, 0.05, device=dev)
+    x = torch.zeros(2, 4 * 4096, device=dev)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_lib", None)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        casc(x)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        chain_(x, x)

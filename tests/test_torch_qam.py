@@ -420,7 +420,15 @@ def test_entry_points_default_to_the_card(monkeypatch):
     from libtsd_tpu.models.demod_sb import SBDemodConfig as CFj
     from libtsd_tpu_torch.models.demod_sb import (DecisionDemodSB,
                                                   SBDemodConfig)
+    from libtsd_tpu.models import receivers as RXj
+    from libtsd_tpu.ops.pallas.iir import IirCascadePallas
+    from libtsd_tpu_torch.models import demod as DMt
+    from libtsd_tpu_torch.models import receivers as RXt
+    from libtsd_tpu_torch.models.clock_rec2 import ClockRec2 as CR2t
+    from libtsd_tpu_torch.models.demod_dec2 import DecisionDemod2 as DD2t
     from libtsd_tpu_torch.ops import psd
+    from libtsd_tpu_torch.ops import rng as RNt
+    from libtsd_tpu_torch.ops.kernels import fm as KF, iir as KI
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     wj = WFj.wf_qpsk()
     wt = convert.waveform_from_jax(wj, device=CPU)
@@ -450,6 +458,29 @@ def test_entry_points_default_to_the_card(monkeypatch):
         lambda: convert.waveform_from_jax(wj),
         lambda: convert.demod_sb_from_jax(dj),
         lambda: convert.demod_state_from_jax(dj.init()),
+        # the FM and IIR slice
+        lambda: FRt.ExpSmoother.create(0.1),
+        lambda: FRt.DcBlocker.create(0.01),
+        lambda: FRt.Iir.create([1.0, 0.5], [1.0, -0.5]),
+        lambda: FRt.IirFrame.create([1.0, 0.5], [1.0, -0.5]),
+        lambda: FRt.Sos.create(np.array([[1.0, 0, 0, 1.0, -0.5, 0]])),
+        lambda: FRt.sos_frame_chain(np.array([[1.0, 0, 0, 1.0, -0.5, 0]])),
+        lambda: KI.IirCascade([([1.0, 0.5], [1.0, -0.5])]),
+        lambda: KF.FmChain(0.25, 4, 63, 0.1, 0.05),
+        lambda: RXt.FmReceiver.create(RXt.FmReceiverConfig()),
+        lambda: RXt.Qam16Modem.create(),
+        lambda: CR2t.create(CKt.ClockRecConfig()),
+        lambda: DD2t.create(wt, DDt.DecDemodConfig()),
+        lambda: DMt.Demodulator.create(DMt.DemodConfig(wf=wt, fe=4.0,
+                                                       fsymb=1.0)),
+        lambda: SGt.sigexp(0.1, 16),
+        lambda: SGt.NCO.create(0.1),
+        lambda: RNt.Rng(0).randn(3),
+        lambda: convert.fm_receiver_from_jax(RXj.FmReceiver.create(
+            RXj.FmReceiverConfig())),
+        lambda: convert.iir_cascade_from_jax(IirCascadePallas(
+            [([1.0, 0.5], [1.0, -0.5])])),
+        lambda: convert.qam16_modem_from_jax(RXj.Qam16Modem.create()),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
