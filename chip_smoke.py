@@ -38,6 +38,15 @@ Builds the port's CUDA kernels from ``libtsd_tpu_torch/csrc`` into
   sections over 64 x 2^18 samples, against its plain version and float64
   ``scipy.signal.sosfilt``, 4 calls with the state carried bit-identical
   to one call;
+* the parallel layer on a (chan 2, time 4) mesh of 8 virtual shards of
+  the card: the main path's working set through
+  ``sharded_fir_periodogram4096`` in both halo forms (``"fused"``: kernel
+  #11, the halo pushed inside the kernel; ``"ppermute"``: tail copies,
+  then #3), #11's partial spectra against its plain version, both forms
+  against the unsharded #3, a second input on the same receive slots and
+  slots poisoned beforehand; ``sharded_chain`` (overlap-save ``OlaFft``,
+  kernel #9, then an ``IirFrame``) at 64 channels and the sharded FM
+  receiver at 256 x 2^18, each against its unsharded run;
 * the QAM-16 modem (``Qam16Modem``, ``__graft_entry__.entry()``) in both
   ``rx_mode``s: the entry workload, then 2,000 symbols delayed by 1.3
   samples against the BER and EVM gates of tests/test_receivers.py.
@@ -50,8 +59,8 @@ read just after; a kernel of a path that was not launched fails the run.
 Any failure raises and exits non-zero.  Without a CUDA device it exits 1
 and prints no result.  ``--profile DIR`` adds ``torch.profiler`` windows
 over the fused and composed main path and over one step of each QAM
-engine and of each frame-receiver engine (device busy time, idle share,
-top kernels; chrome traces into DIR).
+engine, of each frame-receiver engine and of both sharded chain forms
+(device busy time, idle share, top kernels; chrome traces into DIR).
 
 Output, in order: versions and the card (``nvidia-smi`` name, power
 limit), build time, one line per check with its tolerance, timings, launch
@@ -133,6 +142,16 @@ TOL_IIR = 1e-5
 NSYM_ENTRY, NSYM_GATE = 512, 2000
 TOL_MODEM_BER, TOL_MODEM_EVM = 0.01, 0.15
 
+# the parallel layer: a (chan, time) mesh of virtual shards of one card
+MESH_CHAN, MESH_TIME = 2, 4
+C_PAR = 64             # sharded_chain's channels; 16 hops of #9 per shard
+HOPS_PAR = 16
+# sharded vs unsharded (tests/test_parallel.py:96,223); the IIR chain and
+# the FM receiver absolute, the FM after FM_PAR_SKIP outputs (:241,365-366)
+TOL_SHARD, TOL_SHARD_IIR, TOL_SHARD_FM = 1e-5, 1e-4, 1e-4
+FM_PAR_SKIP = 16
+SENTINEL_I16 = 32767   # poisons an int16 receive slot
+
 # the card's published peaks (NVIDIA's H100 SXM data sheet): HBM bytes/s and
 # fp32 FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12
@@ -159,13 +178,19 @@ KERNELS = {   # wrapper name -> (source, the Pallas call it replaces)
                     "libtsd_tpu/ops/pallas/iir.py:147"),
     "fm_chain": ("libtsd_tpu_torch/csrc/fm.cu",
                  "libtsd_tpu/ops/pallas/fm.py:289"),
+    "fir_periodogram4096_halo": ("libtsd_tpu_torch/csrc/chain_halo.cu",
+                                 "libtsd_tpu/ops/pallas/chain.py:362"),
 }
 PATH_KERNELS = {"main": ("fir", "periodogram4096", "fir_periodogram4096",
                          "fft_pow2"),
                 "qam": ("demod_sb", "demod_sb_fused"),
                 "frame": ("ola", "detfront"),
                 "fm": ("fm_chain",),
-                "iir": ("iir_cascade",)}
+                "iir": ("iir_cascade",),
+                "parallel": ("fir_periodogram4096_halo",)}
+# kernels the parallel path runs under the mesh whose counts stay those of
+# their own paths: each must still launch there
+PARALLEL_ALSO = ("fir_periodogram4096", "ola")
 
 
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
@@ -1282,6 +1307,211 @@ def modem_phase(seed: int, dev) -> dict:
     return out
 
 
+# ------------------------------------------------------- parallel layer
+
+
+def parallel_setup(h, gen, dev) -> dict:
+    """The parallel path's inputs, made on the card: the mesh of
+    MESH_CHAN x MESH_TIME virtual shards of ``dev``; the main path's
+    working set (C_MAIN x N_MAIN int16) and its grid of local shards (the
+    deployment form: each shard's samples already on its device); the
+    sharded chain's blocks (the 129-tap lowpass at 0.2 through the
+    overlap-save OlaFft, engine "cuda" = #9, then an order-2 Butterworth
+    lowpass at 0.1 as IirFrame) and its input, C_PAR complex channels of
+    HOPS_PAR hops of #9 per shard; the FM receiver (FmReceiverConfig())
+    and C_FM x N_FM tones as in the FM phase."""
+    from libtsd_tpu_torch.models.receivers import FmReceiver, FmReceiverConfig
+    from libtsd_tpu_torch.ops.filter_rt import Fir, IirFrame, OlaFft
+    from libtsd_tpu_torch.ops.fir_design import fir_lowpass
+    from libtsd_tpu_torch.ops.iir_design import design_iir
+    from libtsd_tpu_torch.parallel import make_mesh, shard
+    mesh = make_mesh(chan=MESH_CHAN, time=MESH_TIME,
+                     devices=[dev] * (MESH_CHAN * MESH_TIME))
+    x = torch.randint(-2048, 2048, (C_MAIN, N_MAIN), generator=gen,
+                      device=dev, dtype=torch.int16)
+    ola = OlaFft.create(fir_lowpass(129, 0.2), engine="cuda", device=dev)
+    b, a = design_iir(2, "lp", "butt", 0.1).to_ba()
+    n_par = MESH_TIME * HOPS_PAR * ola.Ne
+    w = torch.randn(2, C_PAR, n_par, generator=gen, device=dev)
+    xfm, fa = fm_signal(gen, dev, C_FM, 0.25)
+    torch.cuda.synchronize()
+    return dict(mesh=mesh, G=Fir.create(h, device=dev).G, x=x,
+                xs=shard(mesh, x), ola=ola,
+                iir=IirFrame.create(b, a, device=dev),
+                xc=torch.complex(w[0], w[1]),
+                fm=FmReceiver.create(FmReceiverConfig(), device=dev),
+                xfm=xfm)
+
+
+def parallel_path(ps) -> dict:
+    """The parallel layer as a user drives it: the sharded fused chain on
+    the pre-sharded grid in both halo forms (headline tier int16,
+    fir_passes=2), the sharded chain [(OlaFft, V), (IirFrame, 0)] and the
+    sharded FM receiver on global tensors (cut and put back by the
+    calls)."""
+    from libtsd_tpu_torch.parallel import (sharded_chain,
+                                           sharded_fir_periodogram4096,
+                                           sharded_fm_receiver)
+    mesh, G, xs = ps["mesh"], ps["G"], ps["xs"]
+    out = {form: sharded_fir_periodogram4096(mesh, xs, G, precision="int16",
+                                             halo=form, fir_passes=2)
+           for form in ("fused", "ppermute")}
+    out["chain"] = sharded_chain(mesh, [(ps["ola"], ps["ola"].V),
+                                        (ps["iir"], 0)], ps["xc"])
+    out["fm"] = sharded_fm_receiver(mesh, ps["fm"], ps["xfm"])
+    torch.cuda.synchronize()
+    return out
+
+
+def _halo_rows(ps, plain: bool = False) -> list:
+    """#11 on the row's own receive slots (or its plain version) over each
+    chan row of the grid: the 8 partial spectra."""
+    from libtsd_tpu_torch.ops.kernels import chain_halo as KH
+    out = []
+    for i, row in enumerate(ps["xs"]):
+        out += (KH.fir_periodogram4096_halo_plain(row, ps["G"], None,
+                                                  "int16", 2) if plain
+                else KH.fir_periodogram4096_halo(
+                    row, ps["G"], None, "int16", 2,
+                    bufs=ps["mesh"].halo_buffers[i]))
+    return out
+
+
+def parallel_checks(ps, pp, gen) -> float:
+    """#11's 8 partial spectra against its plain version; both halo forms
+    against the unsharded #3; a second input on the same receive slots;
+    slots poisoned first (int16: a sentinel; bf16, 16 channels: NaN); the
+    sharded OLA stage and chain and the sharded FM receiver against their
+    unsharded runs.  Returns #11's max |error| vs plain."""
+    from libtsd_tpu_torch.ops.kernels.chain import fir_periodogram4096
+    from libtsd_tpu_torch.parallel import (make_mesh, shard, sharded_chain,
+                                           sharded_fir_periodogram4096)
+    mesh, G, x = ps["mesh"], ps["G"], ps["x"]
+    err = 0.0
+    kparts = _halo_rows(ps)
+    pparts = _halo_rows(ps, plain=True)
+    for j, (a, b) in enumerate(zip(kparts, pparts)):
+        err = max(err, check(
+            f"parallel #11 shard ({j // MESH_TIME}, {j % MESH_TIME}) vs "
+            f"plain, {C_MAIN // MESH_CHAN} x {N_MAIN // MESH_TIME} int16/2",
+            a, b, TOL_F32, per_bin=True))
+    del kparts, pparts
+    one = fir_periodogram4096(x, G, precision="int16", fir_passes=2)
+    for form in ("fused", "ppermute"):
+        check(f"parallel sharded {form} vs unsharded #3, {C_MAIN} x {N_MAIN} on "
+              f"{MESH_CHAN} x {MESH_TIME} shards", pp[form], one, TOL_SHARD,
+              per_bin=True)
+
+    def sharded(xin, prec="int16", passes=2):
+        return sharded_fir_periodogram4096(mesh, xin, G, precision=prec,
+                                           halo="fused", fir_passes=passes)
+
+
+    x2 = torch.randint(-2048, 2048, x.shape, generator=gen, device=x.device,
+                       dtype=torch.int16)
+    check("parallel fused, a second input on the same slots, vs unsharded "
+          "#3", sharded(shard(mesh, x2)),
+          fir_periodogram4096(x2, G, precision="int16", fir_passes=2),
+          TOL_SHARD, per_bin=True)
+    del x2
+    for i in range(MESH_CHAN):
+        for r in mesh.halo_buffers[i].recv:
+            r.fill_(SENTINEL_I16)
+    check(f"parallel fused, slots filled with {SENTINEL_I16} first, vs "
+          f"unsharded #3", sharded(ps["xs"]), one, TOL_SHARD, per_bin=True)
+    # bf16 on a mesh of its own (its own slots), poisoned with NaN
+    mesh = make_mesh(chan=MESH_CHAN, time=MESH_TIME,
+                     devices=[x.device] * (MESH_CHAN * MESH_TIME))
+    xb = x[:16].float()
+    sharded(shard(mesh, xb), "bf16", 3)          # makes the bf16 slots
+    for i in range(MESH_CHAN):
+        for r in mesh.halo_buffers[i].recv:
+            r.fill_(float("nan"))
+    check("parallel fused bf16 (16 ch), slots filled with NaN first, vs "
+          "unsharded #3", sharded(shard(mesh, xb), "bf16", 3),
+          fir_periodogram4096(xb, G, precision="bf16"), TOL_SHARD,
+          per_bin=True)
+    mesh = ps["mesh"]
+    del xb, one
+    torch.cuda.empty_cache()
+    ola, iir, xc = ps["ola"], ps["iir"], ps["xc"]
+    y1 = ola.step(ola.init_for(xc), xc)[1]
+    check(f"parallel sharded_chain OLA stage (#9) vs unsharded, {C_PAR} x "
+          f"{xc.shape[1]} complex", torch.view_as_real(
+              sharded_chain(mesh, [(ola, ola.V)], xc)),
+          torch.view_as_real(y1), TOL_SHARD)
+    ref = iir.step(iir.init_for(y1), y1)[1]
+    d = (pp["chain"] - ref).abs().max().item()
+    ok = bool(torch.isfinite(torch.view_as_real(pp["chain"])).all()) and \
+        d < TOL_SHARD_IIR
+    print(f"check parallel sharded_chain [OlaFft #9, IirFrame] vs unsharded:"
+          f" max_abs_err={d:.6e} tol={TOL_SHARD_IIR:g} (peak "
+          f"{ref.abs().max().item():.3f}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("sharded_chain vs unsharded")
+    fm, xfm = ps["fm"], ps["xfm"]
+    comp = fm.step(fm.init_for(xfm), xfm)[1]
+    ys = pp["fm"]
+    d = (ys[:, FM_PAR_SKIP:] - comp[:, FM_PAR_SKIP:]).abs().max().item()
+    ok = (ys.shape == comp.shape == (C_FM, N_FM // 4)
+          and bool(torch.isfinite(ys).all()) and d < TOL_SHARD_FM)
+    print(f"check parallel sharded_fm_receiver vs FmReceiver.step, {C_FM} x "
+          f"{N_FM}: max_abs_err={d:.6e} after {FM_PAR_SKIP} outputs "
+          f"(first {FM_PAR_SKIP}: "
+          f"{(ys[:, :FM_PAR_SKIP] - comp[:, :FM_PAR_SKIP]).abs().max().item():.3e})"
+          f" tol={TOL_SHARD_FM:g} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("sharded FM receiver vs unsharded")
+    return err
+
+
+def parallel_timings(ps) -> tuple[dict, dict]:
+    """#11 over the 8 shards (one mesh call's launches) beside its plain
+    version, the whole sharded call in both forms and the unsharded #3;
+    the sharded and unsharded FM step.  #11's bound: #3's at the full
+    working set (2 K flop a sample for the FIR, 5 n log2 n + 4 n per
+    frame), plus the pushed tails, each read and written once, and the 8
+    partial spectra written."""
+    from libtsd_tpu_torch.ops.kernels.chain import fir_periodogram4096
+    from libtsd_tpu_torch.parallel import (sharded_fir_periodogram4096,
+                                           sharded_fm_receiver)
+    mesh, G, x, xs = ps["mesh"], ps["G"], ps["x"], ps["xs"]
+    K = 256
+    ms_k = time_ms(lambda: _halo_rows(ps))
+    ms_p = time_ms(lambda: _halo_rows(ps, plain=True))
+    torch.cuda.empty_cache()
+    forms = {f: time_ms(lambda f=f: sharded_fir_periodogram4096(
+        mesh, xs, G, precision="int16", halo=f, fir_passes=2))
+        for f in ("fused", "ppermute")}
+    ms_one = time_ms(lambda: fir_periodogram4096(x, G, precision="int16",
+                                                 fir_passes=2))
+    P = (G.shape[0] - 1) * 128
+    shards = MESH_CHAN * MESH_TIME
+    frames = C_MAIN * N_MAIN // NFFT
+    bms, by = bound(2 * C_MAIN * N_MAIN + 4 * C_MAIN * NFFT * MESH_TIME
+                    + 2 * 2 * C_MAIN * P * (MESH_TIME - 1) + 4 * K,
+                    2 * K * C_MAIN * N_MAIN
+                    + frames * (fft_flops(NFFT) + 4 * NFFT))
+    fm, xfm = ps["fm"], ps["xfm"]
+    fm_sh = time_ms(lambda: sharded_fm_receiver(mesh, fm, xfm), reps=3)
+    fm_un = time_ms(lambda: fm.step(fm.init_for(xfm), xfm), reps=3)
+    print(f"time parallel #11 fir_periodogram4096_halo: {shards} shards "
+          f"{ms_k:.4f} ms ({ms_k / shards:.4f} ms a shard, "
+          f"{C_MAIN * N_MAIN / ms_k / 1e3:.1f} Msamples/s), plain "
+          f"{ms_p:.4f} ms, bound {bms:.4f} ms by {by}; library call none")
+    print(f"time parallel sharded_fir_periodogram4096 int16/2 on "
+          f"{MESH_CHAN} x {MESH_TIME}: fused {forms['fused']:.4f} ms, "
+          f"ppermute {forms['ppermute']:.4f} ms; unsharded #3 "
+          f"{ms_one:.4f} ms")
+    print(f"time parallel FM: sharded_fm_receiver {fm_sh:.4f} ms, unsharded "
+          f"FmReceiver.step {fm_un:.4f} ms ({C_FM} x {N_FM})")
+    extra = {"halo_call_ms": ms_k, "halo_shard_ms": ms_k / shards,
+             "plain_ms": ms_p, "fused_ms": forms["fused"],
+             "ppermute_ms": forms["ppermute"], "unsharded_ms": ms_one,
+             "fm_sharded_ms": fm_sh, "fm_unsharded_ms": fm_un}
+    return {"fir_periodogram4096_halo": (ms_k, ms_p, bms, by, None)}, extra
+
+
 def profile(mp, out_dir: str) -> None:
     """Optional phase: torch.profiler over 5 back-to-back calls of the
     fused int16/2 chain and of the composed path (Fir.step -> #2), after a
@@ -1342,9 +1572,10 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", help="also write the results as JSON here")
     ap.add_argument("--profile", metavar="DIR",
-                    help="also profile the fused and composed main path "
-                         "and one step of each QAM and frame-receiver "
-                         "engine; chrome traces go into DIR")
+                    help="also profile the fused and composed main path, "
+                         "one step of each QAM and frame-receiver engine, "
+                         "the FM chain and both sharded chain forms; "
+                         "chrome traces go into DIR")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
@@ -1468,6 +1699,36 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"phase iir: {time.perf_counter() - t_phase:.1f} s")
 
+    # the parallel layer (kernel #11; #3 and #9 under the mesh)
+    t_phase = time.perf_counter()
+    ps = parallel_setup(h, gen, dev)
+    kernels.reset_launches()
+    pp = parallel_path(ps)
+    counts = kernels.launches()
+    launches.update({k: counts[k] for k in PATH_KERNELS["parallel"]})
+    shards = MESH_CHAN * MESH_TIME
+    print("launches (parallel path): " + json.dumps(
+        {k: counts[k] for k in PATH_KERNELS["parallel"] + PARALLEL_ALSO}))
+    if counts["fir_periodogram4096_halo"] != shards or any(
+            counts[k] == 0 for k in PARALLEL_ALSO):
+        raise AssertionError(f"parallel path launches {counts}: want "
+                             f"{shards} of #11 and #3, #9 under the mesh")
+    errs["fir_periodogram4096_halo"] = parallel_checks(ps, pp, gen)
+    del pp
+    torch.cuda.empty_cache()
+    tpar, par_extra = parallel_timings(ps)
+    tq.update(tpar)
+    if args.profile:
+        from libtsd_tpu_torch.parallel import sharded_fir_periodogram4096
+        profile_windows({
+            f"parallel_{f}": (lambda f=f: sharded_fir_periodogram4096(
+                ps["mesh"], ps["xs"], ps["G"], precision="int16", halo=f,
+                fir_passes=2)) for f in ("fused", "ppermute")},
+            args.profile, calls=3)
+    del ps
+    torch.cuda.empty_cache()
+    print(f"phase parallel: {time.perf_counter() - t_phase:.1f} s")
+
     # the QAM-16 modem, __graft_entry__.entry() (no kernel)
     t_phase = time.perf_counter()
     modem = modem_phase(args.seed, dev)
@@ -1504,7 +1765,7 @@ def main() -> int:
                                       for e, v in fsteps.items()},
                        "fm_step": {"composed_ms": fm_step_ms,
                                    "channels": C_FM, "n": N_FM},
-                       "modem": modem},
+                       "modem": modem, "parallel": par_extra},
                       f, indent=1)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,113 +1,36 @@
 // Kernel #3, the metric kernel: FIR -> DFT-4096 -> |X|^2 accumulated per
 // channel, in one pass; the FIR output lives only in shared memory.
 // Replaces ops/pallas/chain.py::fir_periodogram4096, single-device branch
-// (the JAX package's _kernel with halo_axis=None).
-//
-//     out[c, k] = sum_f |FFT_4096(y[c, 4096 f : 4096 (f + 1)])[k]|^2,
-//     y[c, n]   = sum_{k < K} taps[k] * x[c, n - k],
-//
-// where x[c, n < 0] comes from hist (the last hist_len samples before x,
-// zeros by default) and taps are fp32 (bf16-rounded on the host where the
-// tier asks for it).  x is read in its ingest dtype (f32, bf16, int8 or
-// int16) and converted to fp32 in shared memory; all arithmetic is fp32.
+// (the JAX package's _kernel with halo_axis=None).  The computation and
+// its design are those of chain_frames (chain_body.cuh), which kernel #11
+// (chain_halo.cu) shares.
 //
 // Bound on the H100: the 256-tap FIR costs 512 flop per sample and the FFT
 // about 60, against 1-4 bytes of input per sample: 140-570 flop/byte, far
 // above the fp32 ridge of 20.  The kernel is bound by FMA issue and by the
 // shared-memory loads of the FIR and the FFT stages, not by memory.
 //
-// Design: Hopper blocks run in no order, so nothing is carried between
-// them.  Block (s, c) owns a contiguous run of frames of channel c; for
-// each frame it loads the frame plus its kp - 1 left-halo samples straight
-// from x (only a channel's first frame reads hist), computes the 4096 FIR
-// outputs with the register-blocked core of fir_tile.cuh, stores them as
-// complex values in the FFT buffer, runs fft_smem.cuh's mixed-radix FFT
-// and adds |X|^2 to 16 per-thread registers (fixed, digit-reversed
-// positions, un-permuted once at the end).  Frames of one channel are
-// split over gridDim.x blocks to fill the 132 SMs; the partial spectra are
-// combined by atomicAdd into an output the wrapper zeroes.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
-#include "fft_smem.cuh"
-#include "fir_tile.cuh"
+// Frames of one channel are split over gridDim.x blocks to fill the
+// 132 SMs.
+#include "chain_body.cuh"
 
-constexpr int CH_N = 4096;
-constexpr int CH_LOG2N = 12;
-constexpr int CH_PER_THREAD = CH_N / FIR_THREADS;   // 16 bins per thread
-static_assert(FIR_TILE == CH_N, "one FIR tile per DFT frame");
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ float to_f32(int8_t v) { return (float)v; }
-__device__ __forceinline__ float to_f32(int16_t v) { return (float)v; }
-
-template <typename T>
 // 3 resident blocks per SM (<= 85 registers a thread): shared memory
 // (~68 KB a block) allows 3, and more warps hide the shared-memory latency
+template <typename T>
 __global__ void __launch_bounds__(FIR_THREADS, 3)
 chain_kernel(const T* __restrict__ x, const T* __restrict__ hist,
              const float* __restrict__ taps, float* __restrict__ out,
              long long N, int kp, int hist_len, int hist_stride,
              int frames_per_block) {
-  extern __shared__ float2 sm2[];
-  float2* buf = sm2;                                   // fft_padded(CH_N)
-  float2* tw = sm2 + fft_padded(CH_N);                 // CH_N / 2
-  float* s_taps = reinterpret_cast<float*>(tw + CH_N / 2);   // kp
-  float* s_win = s_taps + kp;                          // kp - 1 + CH_N
-  const int c = blockIdx.y;
-  const long long frames = N / CH_N;
-  const long long f0 = (long long)blockIdx.x * frames_per_block;
-  const long long f1 = min(f0 + frames_per_block, frames);
-  if (f0 >= f1) return;
-  fft_twiddles(tw, CH_LOG2N);
-  for (int k = threadIdx.x; k < kp; k += blockDim.x) s_taps[k] = taps[k];
-  const T* row = x + (long long)c * N;
-  const T* hrow = hist + (long long)c * hist_stride;
-  const int wlen = kp - 1 + CH_N;
-  float p[CH_PER_THREAD];
-#pragma unroll
-  for (int q = 0; q < CH_PER_THREAD; ++q) p[q] = 0.0f;
-  for (long long f = f0; f < f1; ++f) {
-    const long long g0 = f * CH_N - (kp - 1);
-    for (int j = threadIdx.x; j < wlen; j += blockDim.x) {
-      const long long g = g0 + j;
-      float v = 0.0f;
-      if (g >= 0) v = to_f32(row[g]);
-      else if (g >= -(long long)hist_len) v = to_f32(hrow[hist_len + g]);
-      s_win[j] = v;
-    }
-    __syncthreads();
-    float acc[FIR_R];
-    fir_tile(s_win, s_taps, kp, acc);
-#pragma unroll
-    for (int r = 0; r < FIR_R; ++r)
-      buf[fft_pad(fir_out_index(r))] = make_float2(acc[r], 0.0f);
-    // fft_forward's opening barrier also orders this frame's window reads
-    // before the next frame's window stores
-    fft_forward(buf, tw, CH_LOG2N, 1);
-#pragma unroll
-    for (int q = 0; q < CH_PER_THREAD; ++q) {
-      const float2 v = buf[fft_pad(threadIdx.x + FIR_THREADS * q)];
-      p[q] = fmaf(v.x, v.x, fmaf(v.y, v.y, p[q]));
-    }
-    // the next frame writes buf only after the barrier that follows its
-    // window load, so these reads are safe without another barrier
-  }
-  float* o = out + (long long)c * CH_N;
-#pragma unroll
-  for (int q = 0; q < CH_PER_THREAD; ++q)
-    atomicAdd(o + fft_bin(threadIdx.x + FIR_THREADS * q, CH_LOG2N), p[q]);
+  chain_frames<T, false>(x, hist, taps, out, N, kp, hist_len, hist_stride,
+                         frames_per_block);
 }
 
 template <typename T>
 static int launch(const void* x, const void* hist, const float* taps,
                   float* out, long long N, int C, int kp, int hist_len,
                   int hist_stride, int frames_per_block, cudaStream_t stream) {
-  const int smem =
-      fft_padded(CH_N) * 8 + (CH_N / 2) * 8 + (2 * kp - 1 + CH_N) * 4;
+  const int smem = chain_smem_bytes(kp);
   cudaFuncSetAttribute(chain_kernel<T>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   const long long frames = N / CH_N;

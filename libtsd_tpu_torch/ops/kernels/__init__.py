@@ -6,8 +6,8 @@ A wrapper given a CPU tensor runs the plain version; given a CUDA tensor it
 launches the kernel or raises.  Each wrapper counts its launches in a plain
 integer attribute, ``wrapper.launches``.
 """
-from . import (chain, demod_sb, detfront, fft, fir, fm, iir,  # noqa: F401
-               ola, periodogram)
+from . import (chain, chain_halo, demod_sb, detfront, fft, fir,  # noqa: F401
+               fm, iir, ola, periodogram)
 
 WRAPPERS = {
     "fir": fir.fir_kernel,
@@ -20,6 +20,7 @@ WRAPPERS = {
     "detfront": detfront.detfront,
     "iir_cascade": iir.iir_cascade,
     "fm_chain": fm.fm_chain,
+    "fir_periodogram4096_halo": chain_halo.fir_periodogram4096_halo,
 }
 
 

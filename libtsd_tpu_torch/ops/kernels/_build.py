@@ -34,6 +34,7 @@ SMEM_MAX = 227 * 1024   # dynamic shared memory one block may use on sm_90
 P = ctypes.c_void_p
 I = ctypes.c_int
 I64 = ctypes.c_longlong
+U32 = ctypes.c_uint
 F32 = ctypes.c_float
 F64 = ctypes.c_double
 
@@ -52,6 +53,9 @@ SIGNATURES = {
     "detfront_f32": [P, P, P, P, P, P, P, I, I, I, I, I, P],
     "iir_cascade_f32": [P, P, P, P, P, P, P, P, I, I64, I, P],
     "fm_chain_f32": [P, P, P, P, P, I, I64, I, I, F64, F32, F32, F32, F32, P],
+    "fir_periodogram4096_halo": [P, P, P, P, P, P, P, P, I, I64, I, I, I, I,
+                                 I, U32, I, P],
+    "chain_halo_enable_peer": [I, I],
 }
 
 _lock = threading.Lock()

@@ -24,8 +24,9 @@ side of the launch.  The kernel reads x in the ingest dtype and computes
 everything in fp32, including the DFT, which the JAX fast tiers round to
 bf16 on purpose; the port is therefore closer to a float64 reference than
 the JAX tier it is compared with.  ``tb`` and ``pipe`` (TPU scheduling
-knobs that do not change results) and the ``halo_axis`` form (kernel #11)
-are not ported.
+knobs that do not change results) are not ported.  The ``halo_axis`` form
+is kernel #11, ``ops.kernels.chain_halo`` (``csrc/chain_halo.cu``), which
+shares this kernel's body (``csrc/chain_body.cuh``) and :func:`kernel_taps`.
 
 Partial spectra are combined by ``atomicAdd`` (order varies run to run:
 ~1e-6 relative to the peak against the plain version, not bit-exact).
@@ -84,6 +85,25 @@ def taps_from_G(G: torch.Tensor) -> torch.Tensor:
     return taps
 
 
+def kernel_taps(G: torch.Tensor, precision: str,
+                fir_passes: int) -> tuple[torch.Tensor, int]:
+    """(tp, kp): the fused kernels' fp32 taps on G's device, trailing zero
+    taps dropped (they cost FMAs), bf16-rounded where the tier asks for it,
+    zero-padded to kp (``pad_taps``).  Raises if the kernel's shared memory
+    cannot hold them."""
+    taps = taps_from_G(G)
+    nz = torch.nonzero(taps)
+    taps = taps[:int(nz[-1, 0]) + 1 if nz.numel() else 1]
+    if _round_taps(precision, fir_passes):
+        taps = taps.to(torch.bfloat16).to(torch.float32)
+    tp, kp = pad_taps(taps)
+    smem = (NFFT + NFFT // 16) * 8 + NFFT // 2 * 8 + (2 * kp - 1 + NFFT) * 4
+    if smem > _build.SMEM_MAX:
+        raise ValueError(f"{taps.shape[0]} taps exceed the fused kernel's "
+                         f"shared memory")
+    return tp, kp
+
+
 def _history(hist0, C: int, D: int, xdt, device) -> torch.Tensor | None:
     H = max(D - 1, 1)
     if hist0 is None:
@@ -139,16 +159,7 @@ def fir_periodogram4096(x: torch.Tensor, G: torch.Tensor,
     C, N = x.shape
     G = G.to(x.device)
     D = G.shape[0]
-    taps = taps_from_G(G)
-    nz = torch.nonzero(taps)            # trailing zero taps cost FMAs
-    taps = taps[:int(nz[-1, 0]) + 1 if nz.numel() else 1]
-    if _round_taps(precision, fir_passes):
-        taps = taps.to(torch.bfloat16).to(torch.float32)
-    tp, kp = pad_taps(taps)
-    smem = (NFFT + NFFT // 16) * 8 + NFFT // 2 * 8 + (2 * kp - 1 + NFFT) * 4
-    if smem > _build.SMEM_MAX:
-        raise ValueError(f"{taps.shape[0]} taps exceed the fused kernel's "
-                         f"shared memory")
+    tp, kp = kernel_taps(G, precision, fir_passes)
     out = torch.zeros((C, NFFT), dtype=torch.float32, device=x.device)
     if C == 0 or N == 0:
         return out

@@ -537,3 +537,166 @@ def test_fm_iir_kernels_without_build_raise(dev, tmp_path, monkeypatch):
         casc(x)
     with pytest.raises(RuntimeError, match="nvcc"):
         chain_(x, x)
+
+
+# ------------------------------------------- #11 chain_halo (parallel)
+# Gates: #3's, per shard: 1e-4 of the plain version's peak and 1e-3 per bin
+# (floor 1e-6 of the peak); both sides fp32, the kernel's partial spectra
+# combined by atomicAdd.  The shards are virtual, all on cuda:0, launched
+# in time order on one stream.
+
+def _halo_inputs(g, dev, precision, T, K, with_hist0, C=3, frames=3):
+    G = _G(np.random.default_rng(K).standard_normal(K), dev)
+    H = max(G.shape[0] - 1, 1)
+    shape = (C, T * frames * 4096)
+    if precision in ("int8", "int16"):
+        lim = 127 if precision == "int8" else 20000
+        dt = torch.int8 if precision == "int8" else torch.int16
+        x = torch.randint(-lim, lim + 1, shape, generator=g, device=dev,
+                          dtype=dt)
+        h0 = torch.randint(-lim, lim + 1, (C, H, 128), generator=g,
+                           device=dev, dtype=dt)
+    else:
+        x = torch.randn(shape, generator=g, device=dev)
+        h0 = torch.randn(C, H, 128, generator=g, device=dev)
+    return G, [c.contiguous() for c in x.chunk(T, dim=1)], \
+        (h0 if with_hist0 else None)
+
+
+@pytest.mark.parametrize("with_hist0", [False, True])
+@pytest.mark.parametrize("K", [1, 200, 256])          # D = 1, 2, 3
+@pytest.mark.parametrize("precision", TIERS)
+@pytest.mark.parametrize("T", [2, 4])
+def test_chain_halo_kernel(dev, T, precision, K, with_hist0):
+    from libtsd_tpu_torch.ops.kernels import chain_halo
+    g = torch.Generator(device=dev).manual_seed(K + T)
+    G, xs, h0 = _halo_inputs(g, dev, precision, T, K, with_hist0)
+    before = chain_halo.fir_periodogram4096_halo.launches
+    k = chain_halo.fir_periodogram4096_halo(xs, G, h0, precision)
+    assert chain_halo.fir_periodogram4096_halo.launches == before + T
+    p = chain_halo.fir_periodogram4096_halo_plain(xs, G, h0, precision)
+    for a, b in zip(k, p):
+        assert rel(a, b) < TOL
+        assert bin_err(a, b) < TOL_BIN
+
+
+@pytest.mark.parametrize("precision", ["highest", "bf16", "int16", "int8"])
+def test_chain_halo_reused_and_poisoned_slots(dev, precision):
+    """The same HaloBuffers over calls: a second input gives its own
+    spectra (no stale flag or slot is read), and slots filled with NaN (an
+    integer sentinel) beforehand give finite, correct spectra."""
+    from libtsd_tpu_torch.ops.kernels import chain_halo
+    g = torch.Generator(device=dev).manual_seed(3)
+    T = 4
+    bufs = chain_halo.HaloBuffers()
+    for call in range(3):
+        G, xs, _ = _halo_inputs(g, dev, precision, T, 256, False)
+        if call == 2:
+            for r in bufs.recv:
+                r.fill_(float("nan") if r.is_floating_point() else 77)
+        k = chain_halo.fir_periodogram4096_halo(xs, G, None, precision,
+                                                bufs=bufs)
+        p = chain_halo.fir_periodogram4096_halo_plain(xs, G, None, precision)
+        assert bufs.epoch == call + 1
+        for a, b in zip(k, p):
+            assert bool(torch.isfinite(a).all())
+            assert rel(a, b) < TOL
+            assert bin_err(a, b) < TOL_BIN
+
+
+def test_chain_halo_mixed_row_and_refit_slots(dev):
+    """A row with a CPU shard and a card shard raises, whichever comes
+    first (no plain version for the card's shard); one HaloBuffers taken
+    from a row of 3 channels to a row of 5 is made anew and stays right."""
+    from libtsd_tpu_torch.ops.kernels import chain_halo
+    g = torch.Generator(device=dev).manual_seed(9)
+    G, xs, _ = _halo_inputs(g, dev, "highest", 2, 256, False)
+    for row in ([xs[0].cpu(), xs[1]], [xs[0], xs[1].cpu()]):
+        with pytest.raises(ValueError, match="mixes CPU and CUDA"):
+            chain_halo.fir_periodogram4096_halo(row, G)
+    bufs = chain_halo.HaloBuffers()
+    for C in (3, 5, 3):
+        G, xs, _ = _halo_inputs(g, dev, "highest", 2, 256, False, C=C)
+        k = chain_halo.fir_periodogram4096_halo(xs, G, bufs=bufs)
+        p = chain_halo.fir_periodogram4096_halo_plain(xs, G)
+        assert bufs.recv[0].shape == (2, C, 256)
+        for a, b in zip(k, p):
+            assert rel(a, b) < TOL
+            assert bin_err(a, b) < TOL_BIN
+
+
+@pytest.mark.parametrize("halo", ["ppermute", "fused"])
+def test_sharded_fused_chain_on_card(dev, halo):
+    """Both exchange forms on a (2, 4) mesh of virtual shards of cuda:0
+    against the unsharded #3: 1e-5 of the peak (tests/test_parallel.py:96)
+    and 1e-3 per bin."""
+    from libtsd_tpu_torch.parallel import make_mesh, shard
+    from libtsd_tpu_torch.parallel import sharded_fir_periodogram4096
+    g = torch.Generator(device=dev).manual_seed(5)
+    mesh = make_mesh(chan=2, time=4, devices=[dev] * 8)
+    G = _G(fir_lowpass(256, 0.2), dev)
+    x = torch.randint(-2048, 2048, (4, 4 * 8 * 4096), generator=g,
+                      device=dev, dtype=torch.int16)
+    one = chain.fir_periodogram4096(x, G, precision="int16", fir_passes=2)
+    for xin in (x, shard(mesh, x)):
+        s = sharded_fir_periodogram4096(mesh, xin, G, precision="int16",
+                                        halo=halo, fir_passes=2)
+        assert rel(s, one) < 1e-5
+        assert bin_err(s, one) < TOL_BIN
+
+
+def test_chain_halo_without_build_raises(dev, tmp_path, monkeypatch):
+    """No fallback: CUDA shards with no kernel library (no nvcc) raise
+    instead of running #11's plain version."""
+    from libtsd_tpu_torch.ops.kernels import _build, chain_halo
+    G = _G(fir_lowpass(256, 0.2), dev)
+    xs = [torch.zeros(2, 4096, device=dev) for _ in range(2)]
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_lib", None)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        chain_halo.fir_periodogram4096_halo(xs, G)
+
+
+def test_sharded_chain_across_cards(dev):
+    """The multi-card paths: #11's peer stores, peer access, the streams'
+    event waits and the ppermute form's peer copies, on meshes over every
+    visible card (a row across all cards; two rows; two shards a card),
+    three calls in a row on the same slots, against the unsharded #3 on
+    one card (1e-5 of the peak, 1e-3 per bin)."""
+    from libtsd_tpu_torch.ops.kernels import chain_halo
+    from libtsd_tpu_torch.parallel import (make_mesh, shard,
+                                           sharded_fir_periodogram4096)
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more cards (#11's peer stores)")
+    cards = [torch.device("cuda", i) for i in range(n)]
+    layouts = [(1, n, cards), (1, 2 * n, [c for c in cards for _ in (0, 1)])]
+    if n >= 4:
+        layouts.append((2, n // 2, cards))
+    g = torch.Generator(device=dev).manual_seed(9)
+    G = _G(fir_lowpass(256, 0.2), dev)
+    for chan, time, devs in layouts:
+        mesh = make_mesh(chan=chan, time=time, devices=devs)
+        x = torch.randint(-2048, 2048, (2 * chan, time * 8 * 4096),
+                          generator=g, device=dev, dtype=torch.int16)
+        one = chain.fir_periodogram4096(x, G, precision="int16",
+                                        fir_passes=2)
+        xs = shard(mesh, x)
+        for halo in ("fused", "ppermute"):
+            outs = [sharded_fir_periodogram4096(mesh, xs, G,
+                                                precision="int16", halo=halo,
+                                                fir_passes=2)
+                    for _ in range(3)]
+            for s in outs:
+                assert s.device == cards[0]
+                assert rel(s, one) < 1e-5, (chan, time, halo)
+                assert bin_err(s, one) < TOL_BIN
+        row = xs[0]
+        k = chain_halo.fir_periodogram4096_halo(row, G, None, "int16", 2)
+        p = chain_halo.fir_periodogram4096_halo_plain(row, G, None, "int16",
+                                                      2)
+        for a, b in zip(k, p):
+            assert a.device == b.device
+            assert rel(a, b) < TOL and bin_err(a, b) < TOL_BIN
