@@ -1,47 +1,257 @@
 #!/usr/bin/env python3
-"""Time kernels #2 and #4 of other trees of the port against this tree's.
+"""Time kernels #2, #3, #4 and #11 of other trees of the port against this
+tree's.
 
-    python3 ab_kernels.py DIR [DIR ...]
+    python3 ab_kernels.py [--stages] DIR [DIR ...]
 
 Each DIR holds another tree's ``libtsd_tpu_torch/`` (for example
 ``git archive <commit> libtsd_tpu_torch | tar -x -C DIR``), which is built
 by its own ``_build`` from its own ``csrc/`` into DIR/build/.  For each DIR
 in turn, at the main path's shapes: #2 on a random 256 x 2^22 float32
 input and on its first channel, #4 on 8188 x 4096 planes (the main path's
-Welch call).  Each pair is timed other, this, this, other with
-``chip_smoke.time_ms``, and both versions are held to this tree's plain
-version (1e-4 of the peak).  Needs one CUDA card; prints the card's name
-and power limit first.
+Welch call), #3 on 256 x 2^22 samples at every tier (int16/2 and /3;
+split/2, /3 and "highest" on the int16 samples as float32; bf16 on them
+as bfloat16; int8 on int8 samples), and #11 on the int16 samples cut
+into 2 rows of 4 time shards (8 virtual shards of the card, int16/2; each
+row's launches in time order, one call the 8 launches).  Each pair is
+timed other, this, this, other with ``chip_smoke.time_ms``, and both
+versions are held to this tree's plain version (1e-4 of the peak; the
+spectra also 1e-3 per bin).  --stages also builds this tree's kernels
+with -DCHAIN_FIR_ONLY (the fused chain without its FFT stage, into
+build/fir_only/) and times #3 whole and FIR-only in turns at every tier:
+the split of the fused call between its window-and-FIR and its FFT
+stages.  Needs one CUDA card; prints the card's name and power limit
+first.
 """
 from __future__ import annotations
 
+import ctypes
 import importlib.util
 import os
 import sys
 import time
 
+import numpy as np
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+NFFT = 4096
 
 
-def ab_tree(other: str, y: torch.Tensor, dev: torch.device) -> dict:
-    """#2 and #4 of the tree at ``other`` against this tree's, in turns.
-    The other tree's C entry points are called as its own ``SIGNATURES``
-    say: without a twiddle table (#2: y, out, C, N, frames per block,
-    stream; #4: xr, xi, yr, yi, B, log2 n, inverse, stream), or with one
-    after the output pointers, as this tree's, which then gets this tree's
-    table."""
+def _first_port_taps(G, precision, passes):
+    """The fused kernels' taps as the first port's wrapper made them: G's
+    taps, trailing zeros dropped, bf16-rounded where the tier asks for it,
+    zero-padded to kp (``fir.pad_taps``)."""
+    from libtsd_tpu_torch.ops.kernels import chain, fir
+    taps = chain.taps_from_G(G)
+    nz = torch.nonzero(taps)
+    taps = taps[:int(nz[-1, 0]) + 1 if nz.numel() else 1]
+    if chain._round_taps(precision, passes):
+        taps = taps.to(torch.bfloat16).to(torch.float32)
+    return fir.pad_taps(taps)
+
+
+def chain_callers(ob, olib, dev):
+    """The other tree's #3 and #11 called as its own ``SIGNATURES`` say:
+    the first port's forms (fp32 FIR, taps padded to kp, frames per block
+    from its ``_build``; #3: x, hist, taps, out, dtype, N, C, kp, hist_len,
+    hist_stride, frames per block, stream) or this tree's (taps from
+    ``chain.kernel_taps``, the twiddle table, the pass count).  #11 runs a
+    row of time shards with its own receive slots and flags, launched in
+    time order, as ``chain_halo`` does on one card."""
+    from libtsd_tpu_torch.ops.kernels import _build, chain, fft
+    first = len(ob.SIGNATURES["fir_periodogram4096"]) == 12
+    stream = _build.stream_ptr(dev)
+    tw = _build.ptr(fft.twiddles(12, dev))
+    null = ctypes.c_void_p(None)
+
+    def taps(G, precision, passes):
+        if first:
+            tp, kp = _first_port_taps(G, precision, passes)
+            return tp, kp, None
+        return chain.kernel_taps(G, precision, passes, dev)
+
+    def one(x, G, precision, passes):
+        C, N = x.shape
+        tp, K, p = taps(G, precision, passes)
+        out = torch.zeros(C, NFFT, device=dev)
+        code = chain._DTYPE_CODE[x.dtype]
+        hs = max(G.shape[0] - 1, 1) * 128
+        args = ((_build.ptr(tp), _build.ptr(out), code, N, C, K, 0, hs,
+                 ob.frames_per_block(C, N // NFFT, dev)) if first else
+                (_build.ptr(tp), tw, _build.ptr(out), code, p, N, C, K, 0,
+                 hs))
+        _build.check(olib.fir_periodogram4096(_build.ptr(x), _build.ptr(x),
+                                              *args, stream), "other #3")
+        return out
+
+    slots = {}
+
+    def row(xs, G, precision, passes, key):
+        C, N = xs[0].shape
+        T, D = len(xs), G.shape[0]
+        P = (D - 1) * 128
+        if key not in slots:
+            slots[key] = [torch.zeros(T, 2, C, P, dtype=xs[0].dtype,
+                                      device=dev),
+                          torch.zeros(T, 2, C, dtype=torch.int32,
+                                      device=dev), 0]
+        recv, flags, epoch = slots[key]
+        epoch += 1
+        slots[key][2] = epoch
+        s = epoch & 1
+        tp, K, p = taps(G, precision, passes)
+        code = chain._DTYPE_CODE[xs[0].dtype]
+        outs = []
+        for t, x in enumerate(xs):
+            out = torch.zeros(C, NFFT, device=dev)
+            left = ((_build.ptr(recv[t, s]), _build.ptr(flags[t, s]))
+                    if t > 0 else (null, null))
+            right = ((_build.ptr(recv[t + 1, s]),
+                      _build.ptr(flags[t + 1, s])) if t + 1 < T
+                     else (null, null))
+            head = (_build.ptr(x), _build.ptr(x), *left, *right,
+                    _build.ptr(tp))
+            tail = ((_build.ptr(out), code, N, C, K, P, 0, max(P, 128),
+                     epoch, ob.frames_per_block(C, N // NFFT, dev))
+                    if first else
+                    (tw, _build.ptr(out), code, p, N, C, K, P, 0,
+                     max(P, 128), epoch))
+            _build.check(olib.fir_periodogram4096_halo(*head, *tail, stream),
+                         "other #11")
+            outs.append(out)
+        return outs
+
+    return one, row
+
+
+TIERS = (("int16", 2), ("int16", 3), ("split", 2), ("split", 3),
+         ("highest", 3), ("bf16", 2), ("int8", 2))
+
+
+def tier_inputs(x: torch.Tensor, dev: torch.device) -> dict:
+    """Each tier's samples in its ingest dtype, made when asked: the int16
+    samples x as they are, as float32 or as bfloat16; int8 samples of
+    their own."""
+    x8 = torch.randint(-127, 128, x.shape, device=dev, dtype=torch.int8,
+                       generator=torch.Generator(device=dev).manual_seed(1))
+    return {"int16": lambda: x, "int8": lambda: x8,
+            "bf16": lambda: x.to(torch.bfloat16),
+            "split": lambda: x.float(), "highest": lambda: x.float()}
+
+
+def ab_chain(ob, olib, other: str, x: torch.Tensor, G: torch.Tensor,
+             dev: torch.device) -> dict:
+    """#3 (every tier, on samples of its ingest dtype) and #11 (2 x 4
+    virtual shards, int16/2) of the other tree against this tree's, in
+    turns."""
     import chip_smoke as cs
-    from libtsd_tpu_torch.ops.kernels import _build, fft, periodogram
-    spec = importlib.util.spec_from_file_location(
-        "other_build", os.path.join(other, "libtsd_tpu_torch", "ops",
-                                    "kernels", "_build.py"))
+    from libtsd_tpu_torch.ops.kernels import chain, chain_halo
+    one, row = chain_callers(ob, olib, dev)
+    rows = [[c.contiguous() for c in x[r * 128:(r + 1) * 128].chunk(4, 1)]
+            for r in range(2)]
+    bufs = [chain_halo.HaloBuffers() for _ in rows]
+
+    def halo_this():
+        return [o for r, b in zip(rows, bufs) for o in
+                chain_halo.fir_periodogram4096_halo(r, G, None, "int16", 2,
+                                                    bufs=b)]
+
+    def halo_other():
+        return [o for i, r in enumerate(rows) for o in
+                row(r, G, "int16", 2, i)]
+
+    res = {}
+    ingest = tier_inputs(x, dev)
+    for prec, passes in TIERS:
+        xin = ingest[prec]()
+        name = f"fir_periodogram4096 {prec}/{passes} 256x2^22"
+        ref = chain.fir_periodogram4096_plain(xin, G, precision=prec,
+                                              fir_passes=passes)
+        oth = lambda: one(xin, G, prec, passes)              # noqa: E731
+        this = lambda: chain.fir_periodogram4096(            # noqa: E731
+            xin, G, precision=prec, fir_passes=passes)
+        cs.check(f"ab {name} other tree vs plain", oth(), ref, cs.TOL_F32,
+                 per_bin=True)
+        cs.check(f"ab {name} this tree vs plain", this(), ref, cs.TOL_F32,
+                 per_bin=True)
+        del ref
+        res[name] = turns(name, other, oth, this)
+        del xin
+        torch.cuda.empty_cache()
+    name = "fir_periodogram4096_halo int16/2 2x4 shards"
+    refs = [o for r in rows
+            for o in chain_halo.fir_periodogram4096_halo_plain(
+                r, G, None, "int16", 2)]
+    for who, fn in (("other tree", halo_other), ("this tree", halo_this)):
+        for i, (a, b) in enumerate(zip(fn(), refs)):
+            cs.check(f"ab {name} {who} shard {i} vs plain", a, b, cs.TOL_F32,
+                     per_bin=True)
+    del refs
+    res[name] = turns(name, other, halo_other, halo_this)
+    return res
+
+
+def turns(name: str, other: str, oth, this) -> dict:
+    import chip_smoke as cs
+    ts = [cs.time_ms(f) for f in (oth, this, this, oth)]
+    print(f"ab {name} [{other}]: other {ts[0]:.4f} ms, this "
+          f"{ts[1]:.4f} ms, this {ts[2]:.4f} ms, other {ts[3]:.4f} ms; "
+          f"this / other {(ts[1] + ts[2]) / (ts[0] + ts[3]):.3f}")
+    torch.cuda.empty_cache()
+    return {"other_ms": [ts[0], ts[3]], "this_ms": [ts[1], ts[2]]}
+
+
+def load_build(path: str, name: str, flags=(), build_dir=None):
+    """A fresh instance of the ``_build`` module at ``path`` (another
+    tree's, or this tree's with extra nvcc flags into its own build
+    directory), and its loaded library."""
+    spec = importlib.util.spec_from_file_location(name, path)
     ob = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(ob)
+    ob.NVCC_FLAGS = ob.NVCC_FLAGS + list(flags)
+    if build_dir is not None:
+        ob.BUILD_DIR = build_dir
     t0 = time.perf_counter()
     olib = ob.lib()
-    print(f"ab: built {other} in {time.perf_counter() - t0:.1f} s")
+    print(f"ab: built {name} in {time.perf_counter() - t0:.1f} s")
+    return ob, olib
+
+
+def stages(x: torch.Tensor, G: torch.Tensor, dev: torch.device) -> dict:
+    """#3 whole against its FIR-only build (no FFT stage), in turns, at
+    every tier."""
+    from libtsd_tpu_torch.ops.kernels import _build, chain
+    fb, flib = load_build(_build.__file__, "fir_only_build",
+                          ["-DCHAIN_FIR_ONLY"],
+                          _build.BUILD_DIR.parent / "fir_only")
+    one, _ = chain_callers(fb, flib, dev)
+    res = {}
+    ingest = tier_inputs(x, dev)
+    for prec, passes in TIERS:
+        xin = ingest[prec]()
+        name = f"fir_periodogram4096 {prec}/{passes} 256x2^22"
+        res[name] = turns(f"{name} FIR-only (other) vs whole (this)",
+                          "fir_only", lambda: one(xin, G, prec, passes),
+                          lambda: chain.fir_periodogram4096(
+                              xin, G, precision=prec, fir_passes=passes))
+        del xin
+        torch.cuda.empty_cache()
+    return res
+
+
+def ab_tree(other: str, y: torch.Tensor, x: torch.Tensor, G: torch.Tensor,
+            dev: torch.device) -> dict:
+    """#2, #4, #3 and #11 of the tree at ``other`` against this tree's, in
+    turns.  The other tree's C entry points are called as its own
+    ``SIGNATURES`` say: #2 and #4 without a twiddle table (#2: y, out, C,
+    N, frames per block, stream; #4: xr, xi, yr, yi, B, log2 n, inverse,
+    stream), or with one after the output pointers, as this tree's, which
+    then gets this tree's table; #3 and #11 as ``chain_callers`` says."""
+    import chip_smoke as cs
+    from libtsd_tpu_torch.ops.kernels import _build, fft, periodogram
+    ob, olib = load_build(os.path.join(other, "libtsd_tpu_torch", "ops",
+                                       "kernels", "_build.py"), other)
     stream = _build.stream_ptr(dev)
     tw = _build.ptr(fft.twiddles(12, dev))
     pg_tw = ob.SIGNATURES["periodogram4096_f32"][2] is ob.P
@@ -91,28 +301,36 @@ def ab_tree(other: str, y: torch.Tensor, dev: torch.device) -> dict:
         cs.check(f"ab {name} this tree vs plain", cat(this()), ref,
                  cs.TOL_F32)
         del ref
-        ts = [cs.time_ms(f) for f in (oth, this, this, oth)]
-        res[name] = {"other_ms": [ts[0], ts[3]], "this_ms": [ts[1], ts[2]]}
-        print(f"ab {name} [{other}]: other {ts[0]:.4f} ms, this "
-              f"{ts[1]:.4f} ms, this {ts[2]:.4f} ms, other {ts[3]:.4f} ms; "
-              f"this / other {(ts[1] + ts[2]) / (ts[0] + ts[3]):.3f}")
-        torch.cuda.empty_cache()
+        res[name] = turns(name, other, oth, this)
+    del zr, zi
+    torch.cuda.empty_cache()
+    res.update(ab_chain(ob, olib, other, x, G, dev))
     return res
 
 
 def main() -> int:
-    if len(sys.argv) < 2 or not torch.cuda.is_available():
+    args = [a for a in sys.argv[1:] if a != "--stages"]
+    if not (args or "--stages" in sys.argv) or not torch.cuda.is_available():
         print(__doc__.split("\n\n")[1], file=sys.stderr)
         return 1
     import chip_smoke as cs
+    from libtsd_tpu_torch.ops.filter_rt import fir_toeplitz_mats
+    from libtsd_tpu_torch.ops.fir_design import fir_lowpass
     from libtsd_tpu_torch.ops.kernels import _build
     dev = torch.device("cuda", 0)
     cs.device_info()
     _build.build()
     gen = torch.Generator(device=dev).manual_seed(0)
     y = torch.randn(cs.C_MAIN, cs.N_MAIN, generator=gen, device=dev)
-    for d in sys.argv[1:]:
-        ab_tree(d, y, dev)
+    x = torch.randint(-2048, 2048, (cs.C_MAIN, cs.N_MAIN), generator=gen,
+                      device=dev, dtype=torch.int16)
+    G = torch.as_tensor(fir_toeplitz_mats(np.asarray(fir_lowpass(256, 0.2),
+                                                     np.float64))
+                        .astype(np.float32), device=dev)
+    for d in args:
+        ab_tree(d, y, x, G, dev)
+    if "--stages" in sys.argv:
+        stages(x, G, dev)
     return 0
 
 

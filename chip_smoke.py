@@ -156,10 +156,11 @@ TOL_SHARD, TOL_SHARD_IIR, TOL_SHARD_FM = 1e-5, 1e-4, 1e-4
 FM_PAR_SKIP = 16
 SENTINEL_I16 = 32767   # poisons an int16 receive slot
 
-# the card's published peaks (NVIDIA's H100 SXM data sheet): HBM bytes/s and
-# fp32 FLOP/s outside the tensor cores
+# the card's published peaks (NVIDIA's H100 SXM data sheet): HBM bytes/s,
+# fp32 FLOP/s outside the tensor cores, dense bf16 FLOP/s on them
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = 67e12
+PEAK_TENSOR = 989e12
 
 KERNELS = {   # wrapper name -> (source, the Pallas call it replaces)
     "fir": ("libtsd_tpu_torch/csrc/fir.cu",
@@ -197,11 +198,15 @@ PATH_KERNELS = {"main": ("fir", "periodogram4096", "fir_periodogram4096",
 PARALLEL_ALSO = ("fir_periodogram4096", "ola")
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
+def bound(nbytes: float, flops: float,
+          tensor_flops: float = 0.0) -> tuple[float, str]:
     """The least time the card could take for work that moves ``nbytes``
-    (each input read once, each output written once) and does ``flops``:
-    (ms, "bytes" or "operations")."""
+    (each input read once, each output written once), does ``flops`` in
+    fp32 and ``tensor_flops`` as bf16 products on the tensor cores (the
+    units run side by side, so the largest of the three times): (ms,
+    "bytes" or "operations")."""
     tb, tf = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS * 1e3
+    tf = max(tf, tensor_flops / PEAK_TENSOR * 1e3)
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -514,7 +519,9 @@ def main_bounds_and_library(h, mp, dev) -> dict:
     transform only, without |X|^2 and the sum over frames; also at one
     channel), ``torch.fft.fft`` for #4; #3 has none.  Flops: 2 per tap and
     sample for a FIR, 5 n log2 n per complex n-point FFT, 4 per bin for
-    |X|^2 and the accumulation."""
+    |X|^2 and the accumulation.  #3's headline tier, int16/2, does its FIR
+    as two bf16 passes on the tensor cores (its bound: the direct form's
+    useful products); "highest" does it in fp32 (printed beside it)."""
     import torch.nn.functional as F
     y = mp["y"]
     K, frames = len(h), C_MAIN * N_MAIN // NFFT
@@ -526,8 +533,8 @@ def main_bounds_and_library(h, mp, dev) -> dict:
                                  spec),
         PG_ONE: bound(4 * N_MAIN + 4 * NFFT, spec / C_MAIN),
         "fir_periodogram4096": bound(
-            2 * C_MAIN * N_MAIN + 4 * C_MAIN * NFFT + 4 * K,
-            2 * K * C_MAIN * N_MAIN + spec),
+            2 * C_MAIN * N_MAIN + 4 * C_MAIN * NFFT + 4 * K, spec,
+            2 * 2 * K * C_MAIN * N_MAIN),
         "fft_pow2": bound(16 * 4 * nseg * NFFT,
                           4 * nseg * fft_flops(NFFT)),
     }
@@ -547,6 +554,10 @@ def main_bounds_and_library(h, mp, dev) -> dict:
     z = torch.randn(4 * nseg, NFFT, device=dev, dtype=torch.complex64)
     lib["fft_pow2"] = time_ms(lambda: torch.fft.fft(z))
     lib["fir_periodogram4096"] = None
+    hb, hby = bound(4 * C_MAIN * N_MAIN + 4 * C_MAIN * NFFT + 4 * K,
+                    2 * K * C_MAIN * N_MAIN + spec)
+    print(f"bound fir_periodogram4096 highest (fp32 FIR): {hb:.4f} ms by "
+          f"{hby}")
     for name, (bms, by) in out.items():
         lt = lib[name]
         print(f"bound {name}: {bms:.4f} ms by {by}; library call "
@@ -1487,9 +1498,9 @@ def parallel_timings(ps) -> tuple[dict, dict]:
     """#11 over the 8 shards (one mesh call's launches) beside its plain
     version, the whole sharded call in both forms and the unsharded #3;
     the sharded and unsharded FM step.  #11's bound: #3's at the full
-    working set (2 K flop a sample for the FIR, 5 n log2 n + 4 n per
-    frame), plus the pushed tails, each read and written once, and the 8
-    partial spectra written."""
+    working set (int16/2: 2 K flop a sample and pass for the FIR on the
+    tensor cores, 5 n log2 n + 4 n per frame), plus the pushed tails, each
+    read and written once, and the 8 partial spectra written."""
     from libtsd_tpu_torch.ops.kernels.chain import fir_periodogram4096
     from libtsd_tpu_torch.parallel import (sharded_fir_periodogram4096,
                                            sharded_fm_receiver)
@@ -1508,8 +1519,8 @@ def parallel_timings(ps) -> tuple[dict, dict]:
     frames = C_MAIN * N_MAIN // NFFT
     bms, by = bound(2 * C_MAIN * N_MAIN + 4 * C_MAIN * NFFT * MESH_TIME
                     + 2 * 2 * C_MAIN * P * (MESH_TIME - 1) + 4 * K,
-                    2 * K * C_MAIN * N_MAIN
-                    + frames * (fft_flops(NFFT) + 4 * NFFT))
+                    frames * (fft_flops(NFFT) + 4 * NFFT),
+                    2 * 2 * K * C_MAIN * N_MAIN)
     fm, xfm = ps["fm"], ps["xfm"]
     fm_sh = time_ms(lambda: sharded_fm_receiver(mesh, fm, xfm), reps=3)
     fm_un = time_ms(lambda: fm.step(fm.init_for(xfm), xfm), reps=3)
@@ -1532,19 +1543,28 @@ def parallel_timings(ps) -> tuple[dict, dict]:
 
 def profile(mp, out_dir: str) -> None:
     """Optional phase: torch.profiler over 5 back-to-back calls of the
-    fused int16/2 chain, of the composed path (Fir.step -> #2) and of the
+    fused int16/2 chain (with G's checked taps cached, as a caller gets
+    them, and with the cache emptied before each call, as every call was
+    before the cache), of the composed path (Fir.step -> #2) and of the
     main path's ``psd_welch`` (#4 on 8188 segments), after a warm-up, at
     the main path's shapes.  Prints, per window, the device's busy time
     (union of kernel, copy and fill intervals), its idle share of the span
     from the first to the last device interval, and the kernels that take
     most of the busy time."""
     from libtsd_tpu_torch.ops import psd
+    from libtsd_tpu_torch.ops.kernels import chain
     from libtsd_tpu_torch.ops.kernels.chain import fir_periodogram4096
     from libtsd_tpu_torch.ops.kernels.periodogram import periodogram4096_acc
     x, G, fir, y4 = mp["x"], mp["G"], mp["fir"], mp["y"][:4]
+
+    def uncached():
+        chain._taps_cache.clear()
+        return fir_periodogram4096(x, G, precision="int16", fir_passes=2)
+
     profile_windows({
         "fused_int16_2": lambda: fir_periodogram4096(
             x, G, precision="int16", fir_passes=2),
+        "fused_int16_2_uncached": uncached,
         "composed": lambda: periodogram4096_acc(
             fir.step(fir.init_for(x), x)[1]),
         "psd_welch": lambda: psd.psd_welch(y4, NFFT),

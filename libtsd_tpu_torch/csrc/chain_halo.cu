@@ -42,9 +42,9 @@
 // run beside the one before it but never overwrites a slot its neighbour
 // has not read yet.  On one stream the launch order gives that for free.
 //
-// Bound on the H100: #3's (140-570 flop per input byte, FMA- and
-// shared-memory-issue bound), plus P samples a channel read and written
-// once more for the push.
+// Bound on the H100: #3's (the tensor-core FIR of the bf16 tiers, the fp32
+// FMAs of "highest"; chain_body.cuh), plus P samples a channel read and
+// written once more for the push.
 #include "chain_body.cuh"
 
 __device__ __forceinline__ unsigned ld_acquire_sys(const unsigned* p) {
@@ -69,14 +69,14 @@ constexpr unsigned long long WAIT_LIMIT_NS = 10ull * 1000 * 1000 * 1000;
 
 // recv/flag: this shard's slot (null on shard 0: history from hist0);
 // peer_recv/peer_flag: the right neighbour's slot (null on the last shard).
-template <typename T>
-__global__ void __launch_bounds__(FIR_THREADS, 3)
+template <typename T, int kPasses>
+__global__ void __launch_bounds__(chain::THREADS, chain::MIN_BLOCKS)
 chain_halo_kernel(const T* __restrict__ x, const T* __restrict__ hist0,
                   const T* recv, const unsigned* flag, T* peer_recv,
                   unsigned* peer_flag, const float* __restrict__ taps,
-                  float* __restrict__ out, long long N, int kp, int P,
-                  int hist0_len, int hist0_stride, unsigned epoch,
-                  int frames_per_block) {
+                  const float2* __restrict__ tw, float* __restrict__ out,
+                  long long N, int K, int P, int hist0_len, int hist0_stride,
+                  unsigned epoch, int frames_per_block) {
   const int c = blockIdx.y;
   if (blockIdx.x == 0 && P > 0) {
     if (peer_recv != nullptr) {
@@ -104,49 +104,54 @@ chain_halo_kernel(const T* __restrict__ x, const T* __restrict__ hist0,
   }
   // one inlined body: the history is the slot or the caller's hist0
   const bool from_left = recv != nullptr && P > 0;
-  chain_frames<T, true>(x, from_left ? recv : hist0, taps, out, N, kp,
-                        from_left ? P : hist0_len,
-                        from_left ? P : hist0_stride, frames_per_block);
+  chain::chain_frames<T, kPasses, true>(
+      x, from_left ? recv : hist0, taps, tw, out, N, K,
+      from_left ? P : hist0_len, from_left ? P : hist0_stride,
+      frames_per_block);
 }
 
-template <typename T>
+template <typename T, int kPasses>
 static int launch(const void* x, const void* hist0, const void* recv,
                   const unsigned* flag, void* peer_recv, unsigned* peer_flag,
-                  const float* taps, float* out, long long N, int C, int kp,
-                  int P, int hist0_len, int hist0_stride, unsigned epoch,
-                  int frames_per_block, cudaStream_t stream) {
-  const int smem = chain_smem_bytes(kp);
-  cudaFuncSetAttribute(chain_halo_kernel<T>,
+                  const float* taps, const float* tw, float* out, long long N,
+                  int C, int K, int P, int hist0_len, int hist0_stride,
+                  unsigned epoch, cudaStream_t stream) {
+  const int smem =
+      chain::smem_bytes(kPasses, K, (int)sizeof(T));
+  cudaFuncSetAttribute(chain_halo_kernel<T, kPasses>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  const long long frames = N / CH_N;
-  dim3 grid((unsigned)((frames + frames_per_block - 1) / frames_per_block),
-            (unsigned)C);
-  chain_halo_kernel<T><<<grid, FIR_THREADS, smem, stream>>>(
+  int fpb = 0;
+  const dim3 grid = chain::grid_for(chain_halo_kernel<T, kPasses>, smem, C,
+                                    N / chain::NF, &fpb);
+  chain_halo_kernel<T, kPasses><<<grid, chain::THREADS, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(hist0),
       static_cast<const T*>(recv), flag, static_cast<T*>(peer_recv),
-      peer_flag, taps, out, N, kp, P, hist0_len, hist0_stride, epoch,
-      frames_per_block);
+      peer_flag, taps, reinterpret_cast<const float2*>(tw), out, N, K, P,
+      hist0_len, hist0_stride, epoch, fpb);
   return (int)cudaGetLastError();
 }
 
-// dtype: 0 float32, 1 bfloat16, 2 int8, 3 int16 (x, hist0 and the slots).
+// dtype and passes: as fir_periodogram4096 (chain.cu), the same pairs.
 // P: samples pushed per channel, a multiple of 128 and at most N; 0 turns
-// the exchange off (D == 1).  Returns cudaErrorInvalidValue for an unknown
-// dtype code.
+// the exchange off (D == 1).  tw: ops/kernels/fft.py twiddles(12).
+// Returns cudaErrorInvalidValue for a pair that does not exist.
 extern "C" int fir_periodogram4096_halo(
     const void* x, const void* hist0, const void* recv, const unsigned* flag,
-    void* peer_recv, unsigned* peer_flag, const float* taps, float* out,
-    int dtype, long long N, int C, int kp, int P, int hist0_len,
-    int hist0_stride, unsigned epoch, int frames_per_block,
-    cudaStream_t stream) {
-#define CHAIN_HALO_LAUNCH(T)                                                 \
-  launch<T>(x, hist0, recv, flag, peer_recv, peer_flag, taps, out, N, C, kp, \
-            P, hist0_len, hist0_stride, epoch, frames_per_block, stream)
-  switch (dtype) {
-    case 0: return CHAIN_HALO_LAUNCH(float);
-    case 1: return CHAIN_HALO_LAUNCH(__nv_bfloat16);
-    case 2: return CHAIN_HALO_LAUNCH(int8_t);
-    case 3: return CHAIN_HALO_LAUNCH(int16_t);
+    void* peer_recv, unsigned* peer_flag, const float* taps, const float* tw,
+    float* out, int dtype, int passes, long long N, int C, int K, int P,
+    int hist0_len, int hist0_stride, unsigned epoch, cudaStream_t stream) {
+  if (C <= 0 || N < chain::NF) return 0;
+#define CHAIN_HALO_LAUNCH(T, Q)                                              \
+  launch<T, Q>(x, hist0, recv, flag, peer_recv, peer_flag, taps, tw, out, N, \
+               C, K, P, hist0_len, hist0_stride, epoch, stream)
+  switch (dtype * 4 + passes) {
+    case 0: return CHAIN_HALO_LAUNCH(float, 0);
+    case 2: return CHAIN_HALO_LAUNCH(float, 2);
+    case 3: return CHAIN_HALO_LAUNCH(float, 3);
+    case 5: return CHAIN_HALO_LAUNCH(__nv_bfloat16, 1);
+    case 9: return CHAIN_HALO_LAUNCH(int8_t, 1);
+    case 14: return CHAIN_HALO_LAUNCH(int16_t, 2);
+    case 15: return CHAIN_HALO_LAUNCH(int16_t, 3);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef CHAIN_HALO_LAUNCH

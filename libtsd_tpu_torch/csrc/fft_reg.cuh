@@ -1,7 +1,7 @@
 // A register-resident forward complex float32 FFT of n = 2^L points
 // (8 <= L <= 14), templated on L so that every index map is a constant at
-// compile time.  Kernels #2 (periodogram.cu) and #4 (fft.cu) run on it;
-// the kernels that share fft_smem.cuh (#3, #9, #10, #11) do not.
+// compile time.  Kernels #2 (periodogram.cu), #4 (fft.cu) and the fused
+// chain #3/#11 (chain_body.cuh) run on it; #9 and #10 share fft_smem.cuh.
 //
 // Passes: decimation in frequency, as fft_smem.cuh, but each thread keeps
 // the 16 values of one column in registers through a pass, and the data

@@ -42,7 +42,7 @@ F64 = ctypes.c_double
 SIGNATURES = {
     "fir_f32": [P, P, P, I64, I, I, P],
     "periodogram4096_f32": [P, P, P, I, I64, P],
-    "fir_periodogram4096": [P, P, P, P, I, I64, I, I, I, I, I, P],
+    "fir_periodogram4096": [P, P, P, P, P, I, I, I64, I, I, I, I, P],
     "fft_pow2_f32": [P, P, P, P, P, I, I, I, P],
     "demod_sb_f32": [P, I64, P, P, P, I, P, P, P, I, I, I, I, I, I, I, I, I,
                      F32, F32, F32, F32, I, I, P],
@@ -53,8 +53,8 @@ SIGNATURES = {
     "detfront_f32": [P, P, P, P, P, P, P, I, I, I, I, I, P],
     "iir_cascade_f32": [P, P, P, P, P, P, P, P, I, I64, I, P],
     "fm_chain_f32": [P, P, P, P, P, I, I64, I, I, F64, F32, F32, F32, F32, P],
-    "fir_periodogram4096_halo": [P, P, P, P, P, P, P, P, I, I64, I, I, I, I,
-                                 I, U32, I, P],
+    "fir_periodogram4096_halo": [P, P, P, P, P, P, P, P, P, I, I, I64, I, I,
+                                 I, I, I, U32, P],
     "chain_halo_enable_peer": [I, I],
 }
 
@@ -168,16 +168,6 @@ def use_plain(t: torch.Tensor) -> bool:
     if t.device.type == "cuda":
         return False
     raise ValueError(f"no kernel or plain path for device {t.device}")
-
-
-def frames_per_block(C: int, frames: int, device: torch.device) -> int:
-    """Frames of one channel per block for the chain kernels (#3, #11):
-    split each channel's frames over enough blocks that C times
-    that count is about 8 blocks per SM (a few waves at 3-4 resident
-    blocks per SM), so that few channels still fill the card."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    splits = max(1, min(frames, -(-8 * sms // C)))
-    return -(-frames // splits)
 
 
 def require_cuda(*tensors: torch.Tensor) -> None:

@@ -9,10 +9,11 @@ VMEM with one ``make_async_remote_copy``.  Here each shard's kernel stores
 its tail into the right neighbour's receive slot through a (peer) pointer
 and publishes an epoch-tagged flag; the neighbour's first-frame blocks
 acquire the flag and read the history from the slot.  The spectrum is
-#3's own code (``csrc/chain_body.cuh``) and taps (:func:`chain.kernel_taps`),
-so one shard's partial spectrum equals #3 called with its left
-neighbour's tail as ``hist0``.  What bounds it: #3's FMA and
-shared-memory issue, plus (D - 1) 128 samples a channel pushed.
+#3's own code (``csrc/chain_body.cuh``) and taps (:func:`chain.kernel_taps`,
+checked and trimmed once per G and device), so one shard's partial
+spectrum equals #3 called with its left neighbour's tail as ``hist0``.
+What bounds it: #3's tensor-core FIR (the fp32 FMAs for "highest"), plus
+(D - 1) 128 samples a channel pushed.
 
 The host side of the protocol lives here and must stay in step with the
 comment at the top of ``csrc/chain_halo.cu``: slot = epoch & 1, a row's
@@ -35,8 +36,9 @@ from typing import Sequence
 import torch
 
 from . import _build
-from .chain import (_L, _DTYPE_CODE, _history, _ingest,
+from .chain import (_L, _DTYPE_CODE, _history, _ingest, aligned,
                     fir_periodogram4096_plain, kernel_taps)
+from .fft import twiddles
 from .periodogram import NFFT
 
 __all__ = ["HaloBuffers", "fir_periodogram4096_halo",
@@ -177,18 +179,16 @@ def fir_periodogram4096_halo(xs: Sequence[torch.Tensor], G: torch.Tensor,
     bufs.epoch += 1
     epoch, s = bufs.epoch & 0xFFFFFFFF, bufs.epoch & 1
     null = ctypes.c_void_p(None)
-    taps, outs, started = {}, [], None
+    outs, started = [], None
     for t, x in enumerate(xs):
         dev = x.device
         with torch.cuda.device(dev):
-            if x.data_ptr() % 16:                  # the push's 16-byte loads
-                x = x.clone()
-            if dev not in taps:
-                taps[dev] = kernel_taps(G.to(dev), precision, fir_passes)
-            tp, kp = taps[dev]
+            x = aligned(x)                  # 16-byte loads and pushes
+            tp, K, passes = kernel_taps(G, precision, fir_passes, dev)
+            tw = twiddles(12, dev)
             out = torch.zeros((C, NFFT), dtype=torch.float32, device=dev)
             hist = h0 if (t == 0 and h0 is not None) else x
-            _build.require_cuda(x, hist, tp, out)
+            _build.require_cuda(x, hist, tp, tw, out)
             stream = torch.cuda.current_stream(dev)
             if multi:
                 if t > 0 and devices[t - 1] != dev:
@@ -206,11 +206,10 @@ def fir_periodogram4096_halo(xs: Sequence[torch.Tensor], G: torch.Tensor,
                 _build.ptr(bufs.flags[t][s]) if has_left else null,
                 _build.ptr(bufs.recv[t + 1][s]) if has_right else null,
                 _build.ptr(bufs.flags[t + 1][s]) if has_right else null,
-                _build.ptr(tp), _build.ptr(out), _DTYPE_CODE[x.dtype], N, C,
-                kp, P, (D - 1) * _L if (t == 0 and h0 is not None) else 0,
-                max(D - 1, 1) * _L, epoch,
-                _build.frames_per_block(C, N // NFFT, dev),
-                _build.stream_ptr(dev))
+                _build.ptr(tp), _build.ptr(tw), _build.ptr(out),
+                _DTYPE_CODE[x.dtype], passes, N, C, K, P,
+                (D - 1) * _L if (t == 0 and h0 is not None) else 0,
+                max(D - 1, 1) * _L, epoch, _build.stream_ptr(dev))
             _build.check(err, "fir_periodogram4096_halo")
             fir_periodogram4096_halo.launches += 1
             if multi:

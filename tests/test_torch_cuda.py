@@ -92,38 +92,57 @@ def test_periodogram_kernel(dev, C, frames, lowpass):
     assert bin_err(k, p) < TOL_BIN
 
 
-@pytest.mark.parametrize("hist", [False, True])
-@pytest.mark.parametrize("fir_passes", [2, 3])
-@pytest.mark.parametrize("precision", TIERS)
-def test_chain_kernel(dev, precision, fir_passes, hist):
-    g = torch.Generator(device=dev).manual_seed(fir_passes)
-    G = _G(fir_lowpass(256, 0.2), dev)
-    shape = (3, 32 * 4096)
+def _tier_input(g, dev, precision, shape):
+    """Samples of the tier's ingest dtype (int8/int16 ADC ranges, else
+    standard normal floats)."""
     if precision in ("int8", "int16"):
         lim = 127 if precision == "int8" else 20000
         dt = torch.int8 if precision == "int8" else torch.int16
-        x = torch.randint(-lim, lim + 1, shape, generator=g, device=dev,
-                          dtype=dt)
-        h0 = torch.randint(-lim, lim + 1, (3, 2, 128), generator=g,
-                           device=dev, dtype=dt)
-    else:
-        x = torch.randn(shape, generator=g, device=dev)
-        h0 = torch.randn(3, 2, 128, generator=g, device=dev)
-    h0 = h0 if hist else None
+        return torch.randint(-lim, lim + 1, shape, generator=g, device=dev,
+                             dtype=dt)
+    return torch.randn(shape, generator=g, device=dev)
+
+
+# (C, frames): the first runs whole pairs; 7 frames split into runs of 4
+# and 3 (the second block's last frame goes alone); one frame (N = 4096);
+# one channel of 3 frames (a pair and a lone frame in one block)
+CHAIN_SHAPES = [(3, 32), (3, 7), (1, 1), (1, 3)]
+
+
+@pytest.mark.parametrize("C,frames", CHAIN_SHAPES)
+@pytest.mark.parametrize("hist", [False, True])
+@pytest.mark.parametrize("fir_passes", [2, 3])
+@pytest.mark.parametrize("precision", TIERS)
+def test_chain_kernel(dev, precision, fir_passes, hist, C, frames):
+    g = torch.Generator(device=dev).manual_seed(fir_passes + frames)
+    G = _G(fir_lowpass(256, 0.2), dev)
+    x = _tier_input(g, dev, precision, (C, frames * 4096))
+    h0 = _tier_input(g, dev, precision, (C, 2, 128)) if hist else None
+    before = chain.fir_periodogram4096.launches
     k = chain.fir_periodogram4096(x, G, h0, precision, fir_passes)
+    assert chain.fir_periodogram4096.launches == before + 1
     p = chain.fir_periodogram4096_plain(x, G, h0, precision, fir_passes)
     assert rel(k, p) < TOL
     assert bin_err(k, p) < TOL_BIN
 
 
-@pytest.mark.parametrize("K", [1, 31, 300])
-def test_chain_kernel_tap_counts(dev, K):
-    """Short and long filters (tap padding, D = 2 and 4)."""
+@pytest.mark.parametrize("hist", [False, True])
+@pytest.mark.parametrize("fir_passes", [2, 3])
+@pytest.mark.parametrize("precision", TIERS)
+@pytest.mark.parametrize("K", [1, 31, 256, 300])
+def test_chain_kernel_tap_counts(dev, K, precision, fir_passes, hist):
+    """Short and long filters on every tier (D = 1, 2, 3 and 4; E = 1, 3,
+    17 and 20 tap blocks of 16), with and without a history (D = 1: one
+    unread row)."""
     g = torch.Generator(device=dev).manual_seed(K)
     G = _G(np.random.default_rng(K).standard_normal(K), dev)
-    x = torch.randn(2, 8 * 4096, generator=g, device=dev)
-    assert rel(chain.fir_periodogram4096(x, G),
-               chain.fir_periodogram4096_plain(x, G)) < TOL
+    H = max(G.shape[0] - 1, 1)
+    x = _tier_input(g, dev, precision, (2, 8 * 4096))
+    h0 = _tier_input(g, dev, precision, (2, H, 128)) if hist else None
+    k = chain.fir_periodogram4096(x, G, h0, precision, fir_passes)
+    p = chain.fir_periodogram4096_plain(x, G, h0, precision, fir_passes)
+    assert rel(k, p) < TOL
+    assert bin_err(k, p) < TOL_BIN
 
 
 @pytest.mark.parametrize("inverse", [False, True])

@@ -144,6 +144,39 @@ def test_chain_ingest_and_taps_checks():
     assert torch.equal(taps, torch.cat([torch.ones(5), torch.zeros(124)]))
 
 
+def test_kernel_taps_checks_a_G_once(monkeypatch):
+    """The fused kernels' taps are checked and trimmed once per G (and
+    device, tier, pass count): a second call with the same unedited G does
+    not reach taps_from_G (whose torch.equal and the trim's nonzero sync
+    the host); an in-place edit of G, or a new G, is checked anew, and an
+    edit that breaks the Toeplitz form raises.  The cache holds G weakly:
+    dropping a G drops its entries."""
+    G = torch.as_tensor(fir_toeplitz_mats(np.hanning(40)).astype(np.float32))
+    calls = []
+    real = chain.taps_from_G
+    monkeypatch.setattr(chain, "taps_from_G",
+                        lambda g: calls.append(1) or real(g))
+    a = chain.kernel_taps(G, "int16", 2)
+    b = chain.kernel_taps(G, "int16", 2)
+    assert len(calls) == 1 and b[0] is a[0]
+    assert a[1:] == (39, 2)                  # 40 taps, the last one zero
+    chain.kernel_taps(G, "highest", 3)
+    assert len(calls) == 2
+    G.mul_(2.0)                              # bumps G's version counter
+    c = chain.kernel_taps(G, "int16", 2)
+    assert len(calls) == 3 and torch.equal(c[0], 2 * a[0])
+    G2 = G.clone()
+    chain.kernel_taps(G2, "int16", 2)
+    assert len(calls) == 4
+    n = len(chain._taps_cache)
+    del G2
+    assert len(chain._taps_cache) == n - 1
+    G[1, 5, 7] += 1.0
+    with pytest.raises(ValueError, match="Toeplitz"):
+        chain.kernel_taps(G, "int16", 2)
+    assert len(calls) == 5
+
+
 # ------------------------------------------------------------ kernel #4
 
 @pytest.mark.parametrize("inverse", [False, True])
