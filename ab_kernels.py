@@ -1,27 +1,33 @@
 #!/usr/bin/env python3
-"""Time kernels #2, #3, #4 and #11 of other trees of the port against this
+"""Time kernels #2-#7 and #11 of other trees of the port against this
 tree's.
 
-    python3 ab_kernels.py [--stages] DIR [DIR ...]
+    python3 ab_kernels.py [--stages] [--only GROUPS] DIR [DIR ...]
 
 Each DIR holds another tree's ``libtsd_tpu_torch/`` (for example
 ``git archive <commit> libtsd_tpu_torch | tar -x -C DIR``), which is built
 by its own ``_build`` from its own ``csrc/`` into DIR/build/.  For each DIR
-in turn, at the main path's shapes: #2 on a random 256 x 2^22 float32
-input and on its first channel, #4 on 8188 x 4096 planes (the main path's
-Welch call), #3 on 256 x 2^22 samples at every tier (int16/2 and /3;
-split/2, /3 and "highest" on the int16 samples as float32; bf16 on them
-as bfloat16; int8 on int8 samples), and #11 on the int16 samples cut
+in turn, at the paths' shapes: #5 and #6 on the first 8192-sample block
+of the QAM path (4096 channels, QAM-16, osf 4, S 16; through each tree's
+own wrapper, the two trees' results bit for bit alike and this tree's
+bit for bit its plain version's), #7 on 64 x 2^18 float32 samples (an
+order-4 Butterworth lowpass as 2 sections; alike bit for bit, 1e-5 of the
+peak against plain), #3 on 256 x 2^22 samples at every tier (int16/2 and
+/3; split/2, /3 and "highest" on the int16 samples as float32; bf16 on
+them as bfloat16; int8 on int8 samples), #11 on the int16 samples cut
 into 2 rows of 4 time shards (8 virtual shards of the card, int16/2; each
-row's launches in time order, one call the 8 launches).  Each pair is
-timed other, this, this, other with ``chip_smoke.time_ms``, and both
-versions are held to this tree's plain version (1e-4 of the peak; the
-spectra also 1e-3 per bin).  --stages also builds this tree's kernels
-with -DCHAIN_FIR_ONLY (the fused chain without its FFT stage, into
-build/fir_only/) and times #3 whole and FIR-only in turns at every tier:
-the split of the fused call between its window-and-FIR and its FFT
-stages.  Needs one CUDA card; prints the card's name and power limit
-first.
+row's launches in time order, one call the 8 launches), #2 on a random
+256 x 2^22 float32 input and on its first channel, #4 on 8188 x 4096
+planes (the main path's Welch call).  --only takes a comma list of the
+groups "sb" (#5, #6), "iir" (#7), "chain" (#3, #11) and "fft" (#2, #4);
+all by default.  Each pair is timed other, this, this, other with
+``chip_smoke.time_ms``; #2-#4 and #11 are held to this tree's plain
+version (1e-4 of the peak; the spectra also 1e-3 per bin).  --stages also
+builds this tree's kernels with -DCHAIN_FIR_ONLY (the fused chain without
+its FFT stage, into build/fir_only/) and times #3 whole and FIR-only in
+turns at every tier: the split of the fused call between its
+window-and-FIR and its FFT stages.  Needs one CUDA card; prints the
+card's name and power limit first.
 """
 from __future__ import annotations
 
@@ -36,6 +42,8 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 NFFT = 4096
+GROUPS = ("fft", "chain", "sb", "iir")   # --only: kernels #2/#4, #3/#11,
+                                          # #5/#6, #7
 
 
 def _first_port_taps(G, precision, passes):
@@ -241,7 +249,7 @@ def stages(x: torch.Tensor, G: torch.Tensor, dev: torch.device) -> dict:
 
 
 def ab_tree(other: str, y: torch.Tensor, x: torch.Tensor, G: torch.Tensor,
-            dev: torch.device) -> dict:
+            dev: torch.device, only=GROUPS, inp=None) -> dict:
     """#2, #4, #3 and #11 of the tree at ``other`` against this tree's, in
     turns.  The other tree's C entry points are called as its own
     ``SIGNATURES`` say: #2 and #4 without a twiddle table (#2: y, out, C,
@@ -256,9 +264,6 @@ def ab_tree(other: str, y: torch.Tensor, x: torch.Tensor, G: torch.Tensor,
     tw = _build.ptr(fft.twiddles(12, dev))
     pg_tw = ob.SIGNATURES["periodogram4096_f32"][2] is ob.P
     fft_tw = len(ob.SIGNATURES["fft_pow2_f32"]) == 9
-    nseg = len(range(0, cs.N_MAIN - cs.NFFT, cs.NFFT // 2))
-    zr = torch.randn(4 * nseg, cs.NFFT, device=dev)
-    zi = torch.randn(4 * nseg, cs.NFFT, device=dev)
 
     def other_pg(x):
         out = torch.zeros(x.shape[0], cs.NFFT, device=dev)
@@ -277,6 +282,16 @@ def ab_tree(other: str, y: torch.Tensor, x: torch.Tensor, G: torch.Tensor,
             *args, xr.shape[0], 12, 0, stream), "other #4")
         return yr, yi
 
+    res = {}
+    if only & {"sb", "iir"}:
+        res.update(ab_sb_iir(ob, other, inp, only))
+    if "chain" in only:
+        res.update(ab_chain(ob, olib, other, x, G, dev))
+    if "fft" not in only:
+        return res
+    nseg = len(range(0, cs.N_MAIN - cs.NFFT, cs.NFFT // 2))
+    zr = torch.randn(4 * nseg, cs.NFFT, device=dev)
+    zi = torch.randn(4 * nseg, cs.NFFT, device=dev)
     y1 = y[:1]
     cases = {
         "periodogram4096 256x2^22": (
@@ -293,7 +308,6 @@ def ab_tree(other: str, y: torch.Tensor, x: torch.Tensor, G: torch.Tensor,
     def cat(r):
         return torch.stack(r) if isinstance(r, tuple) else r
 
-    res = {}
     for name, (oth, this, plain) in cases.items():
         ref = cat(plain())
         cs.check(f"ab {name} other tree vs plain", cat(oth()), ref,
@@ -302,15 +316,109 @@ def ab_tree(other: str, y: torch.Tensor, x: torch.Tensor, G: torch.Tensor,
                  cs.TOL_F32)
         del ref
         res[name] = turns(name, other, oth, this)
-    del zr, zi
-    torch.cuda.empty_cache()
-    res.update(ab_chain(ob, olib, other, x, G, dev))
+    return res
+
+
+def other_wrapper(ob, other: str, name: str):
+    """The other tree's wrapper module ``ops/kernels/<name>.py``, run with
+    the other tree's ``_build`` (its library, its C signatures) and this
+    tree's modules around it."""
+    path = os.path.join(other, "libtsd_tpu_torch", "ops", "kernels",
+                        f"{name}.py")
+    spec = importlib.util.spec_from_file_location(
+        f"libtsd_tpu_torch.ops.kernels._ab_{name}_{len(_OTHERS)}", path)
+    m = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = m
+    spec.loader.exec_module(m)
+    m._build = ob
+    _OTHERS.append(m)
+    return m
+
+
+_OTHERS: list = []
+FAILED: list = []      # checks that failed without stopping the timings
+
+
+def sb_iir_inputs(dev: torch.device) -> dict:
+    """#5's and #6's arguments for the first block of the QAM path (4096 x
+    8192, QAM-16, osf 4, S 16, as ``chip_smoke.py`` drives it), and #7's
+    cascade and input (64 x 2^18 float32, an order-4 Butterworth lowpass
+    as 2 sections)."""
+    import chip_smoke as cs
+    from libtsd_tpu_torch.models.demod_sb import DecisionDemodSB, SBDemodConfig
+    gen = torch.Generator(device=dev).manual_seed(3)
+    wf, _, xq = cs.qam_signal(gen, dev)
+    xb = xq[:, :cs.N_QAM].contiguous()
+    del xq
+    args = {}
+    for eng in ("cuda", "cuda-fused"):
+        dd = DecisionDemodSB.create(wf, SBDemodConfig(osf=4, S=16,
+                                                      engine=eng), device=dev)
+        args[eng] = cs._kernel_args(eng, dd, dd.init_for(xb), xb)[2]
+    ip = cs.iir_phase(gen, dev)
+    return dict(sb=args["cuda"], fused=args["cuda-fused"], casc=ip["casc"],
+                x=ip["x"])
+
+
+def ab_sb_iir(ob, other: str, inp: dict, only=GROUPS) -> dict:
+    """#6 (4096 x 8192), #5 beside it and #7 (64 x 2^18, 2 sections) of the
+    other tree against this tree's, in turns, through each tree's own
+    wrapper.  The two trees' results must agree bit for bit (#5 and #6 are
+    bit-identical to their plain versions; #7 is held to 1e-5 of the peak
+    against its plain version, and each tree's #7 differs from the other
+    only by exact zero terms); each is also held to its plain version."""
+    import chip_smoke as cs
+    from libtsd_tpu_torch.ops.kernels import demod_sb as KSB, iir
+    osb, oiir = other_wrapper(ob, other, "demod_sb"), other_wrapper(
+        ob, other, "iir")
+    casc, x = inp["casc"], inp["x"]
+    ops = (casc.T, casc.S, casc.W, casc.M)
+    cases = {} if "sb" not in only else {
+        "demod_sb_fused 4096x8192": (
+            lambda: osb.demod_sb_fused(*inp["fused"]),
+            lambda: KSB.demod_sb_fused(*inp["fused"]),
+            lambda: KSB.demod_sb_fused_plain(*inp["fused"])),
+        "demod_sb 4096x8192": (
+            lambda: osb.demod_sb(*inp["sb"]),
+            lambda: KSB.demod_sb(*inp["sb"]),
+            lambda: KSB.demod_sb_plain(*inp["sb"]))}
+    if "iir" in only:
+        cases["iir_cascade 64x2^18 2 sections"] = (
+            lambda: oiir.iir_cascade(x, *ops),
+            lambda: iir.iir_cascade(x, *ops),
+            lambda: iir.iir_cascade_plain(x, *ops))
+    res = {}
+    for name, (oth, this, plain) in cases.items():
+        a, b, ref = oth(), this(), plain()
+        same = all(torch.equal(u, v) for u, v in zip(a, b))
+        print(f"check ab {name}: other and this tree bit-identical {same} "
+              f"{'ok' if same else 'FAIL'}")
+        if not same:
+            FAILED.append(f"{other}: {name}: trees differ")
+        if name.startswith("iir"):
+            cs.check(f"ab {name} this tree vs plain", b[0], ref[0], cs.TOL_IIR)
+        else:
+            for u, v in zip(b, ref):
+                if not torch.equal(u, v):
+                    raise AssertionError(f"ab {name}: not plain's bits")
+            print(f"check ab {name}: this tree bit-identical to plain ok")
+        del a, b, ref
+        res[name] = turns(name, other, oth, this)
     return res
 
 
 def main() -> int:
-    args = [a for a in sys.argv[1:] if a != "--stages"]
-    if not (args or "--stages" in sys.argv) or not torch.cuda.is_available():
+    argv = sys.argv[1:]
+    only = set(GROUPS)
+    if "--only" in argv:
+        i = argv.index("--only")
+        only = set(argv[i + 1].split(","))
+        del argv[i:i + 2]
+        if not only <= set(GROUPS):
+            print(f"--only takes a comma list of {GROUPS}", file=sys.stderr)
+            return 1
+    args = [a for a in argv if a != "--stages"]
+    if not (args or "--stages" in argv) or not torch.cuda.is_available():
         print(__doc__.split("\n\n")[1], file=sys.stderr)
         return 1
     import chip_smoke as cs
@@ -321,17 +429,22 @@ def main() -> int:
     cs.device_info()
     _build.build()
     gen = torch.Generator(device=dev).manual_seed(0)
-    y = torch.randn(cs.C_MAIN, cs.N_MAIN, generator=gen, device=dev)
-    x = torch.randint(-2048, 2048, (cs.C_MAIN, cs.N_MAIN), generator=gen,
-                      device=dev, dtype=torch.int16)
+    y = x = None
+    if only & {"fft", "chain"} or "--stages" in argv:
+        y = torch.randn(cs.C_MAIN, cs.N_MAIN, generator=gen, device=dev)
+        x = torch.randint(-2048, 2048, (cs.C_MAIN, cs.N_MAIN), generator=gen,
+                          device=dev, dtype=torch.int16)
     G = torch.as_tensor(fir_toeplitz_mats(np.asarray(fir_lowpass(256, 0.2),
                                                      np.float64))
                         .astype(np.float32), device=dev)
+    inp = sb_iir_inputs(dev) if only & {"sb", "iir"} else None
     for d in args:
-        ab_tree(d, y, x, G, dev)
-    if "--stages" in sys.argv:
+        ab_tree(d, y, x, G, dev, only, inp)
+    if "--stages" in argv:
         stages(x, G, dev)
-    return 0
+    for f in FAILED:
+        print(f"FAIL {f}")
+    return 1 if FAILED else 0
 
 
 if __name__ == "__main__":

@@ -684,11 +684,15 @@ def qam_checks(wf, bits, x, qp) -> dict:
             mism = (symbol_indices_to_bits(sk, 4)
                     != symbol_indices_to_bits(sp, 4)).float().mean().item()
             dst = (stk - stp).abs().max().item()
-            ok = same and dmax < TOL_SYM and mism < TOL_BITS
+            # #5 and #6 round every operation as their plain versions do:
+            # the symbols and the state agree bit for bit
+            ok = (same and dmax < TOL_SYM and mism < TOL_BITS and dmax == 0
+                  and dst == 0)
             print(f"check qam {name} (#{5 if eng == 'cuda' else 6}) vs plain,"
                   f" {C_QAM} x {N_QAM} step {k}: valid masks equal {same}, "
                   f"max|dsym| {dmax:.3e} tol {TOL_SYM:g}, bit mismatch "
-                  f"{mism:.3e} tol {TOL_BITS:g}, max|dstate| {dst:.3e} "
+                  f"{mism:.3e} tol {TOL_BITS:g}, max|dstate| {dst:.3e} (both "
+                  f"must be 0) "
                   f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"{name} vs plain")

@@ -27,14 +27,21 @@
 // channels give 2048 warps, ~16 per SM.  The window reads zp in place at
 // the channel's own offset (a plain indexed read: no materialised frame
 // stack, no lane-shift network), and the phase error is atan2f (the TPU
-// kernel used a polynomial).  #6 computes, per superframe of tb
-// sub-blocks, the fp32 matched-filter rows it needs into shared memory,
-// with their power for the AGC's EMA, then runs the same sub-block step on
-// them; the filtered signal never reaches device memory.
+// kernel used a polynomial).  #6 runs the same sub-block step on fp32
+// matched-filter rows that it computes itself, with their power for the
+// AGC's EMA; the filtered signal never reaches device memory.  Producer
+// warps stage the input in shared memory by cp.async one hop (S osf
+// samples) ahead of use and compute each row once from there into a ring
+// of rows per channel, for a sub-block D hops ahead of the one that the
+// consumer warps' loop runs (details above the kernel): the filter's
+// independent arithmetic runs beside the loop's latency, where the first
+// port computed a whole superframe's rows (13 % of them twice, each input
+// sample read kmf times from L1) and then ran the loop on them.
 #include <cuda_runtime.h>
 #include <math.h>
 
-#define SB_THREADS 128
+#define SB_THREADS 128   // threads a block of #5
+#define SBF_THREADS 128  // consumer threads a block of #6 (producers beside)
 #define SB_APW 0.25f
 #define SB_FULL 0xffffffffu
 
@@ -303,93 +310,258 @@ demod_sb_kernel(const float2* __restrict__ zp, long long ldz,
   if (active && j == 0) sb_store(st_out, cc, C, st);
 }
 
+// #6's ring layout, one per launch (ops/kernels/demod_sb.py's fused_smem
+// mirrors it): D hops of matched-filter rows span a sub-block's window; the
+// row ring holds RG >= (D + 1) hop rows (a power of 2), the input ring IRG
+// >= 2 hop + kmf + 2 samples (a power of 2) at 6 float2 slots per 4
+// samples, the scale ring SQ >= D + 2 superframe scales (a power of 2).
+struct FusedLayout {
+  int D, RG, IRG, SQ, group_bytes, smem;
+};
+
+static int pow2_at_least(int v) {
+  int p = 1;
+  while (p < v) p <<= 1;
+  return p;
+}
+
+static FusedLayout fused_layout(int S, int osf, int G, int tb, int sfz,
+                                int kmf, int M) {
+  FusedLayout f;
+  const int hop = S * osf;
+  const int F = sfz - tb * hop + hop;   // rows one sub-block's window reads
+  f.D = (F + hop - 1) / hop;
+  f.RG = pow2_at_least((f.D + 1) * hop);
+  f.IRG = pow2_at_least(2 * hop + kmf + 2);
+  if (f.IRG < 4) f.IRG = 4;
+  f.SQ = pow2_at_least(f.D + 2);
+  if (f.SQ < 4) f.SQ = 4;
+  f.group_bytes = f.RG * 8 + f.IRG / 4 * 6 * 8 + f.SQ * 4;
+  f.smem = (SBF_THREADS / G) * f.group_bytes + (kmf + 3) / 4 * 16 +
+           (M + 1) / 2 * 16;
+  return f;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          int src_bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+               :: "r"(d), "l"(src), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Input ring slot of sample x_g: g mod IRG, 4 samples to 6 slots (2-way
+// bank conflicts at most where the lanes' 4-row chunks read 4 samples
+// apart; a pair at an even g stays one 16-byte line).
+__device__ __forceinline__ int in_slot(int g, int irg) {
+  const int s = g & (irg - 1);
+  return s + 2 * (s >> 2);
+}
+
+__device__ __forceinline__ void named_bar(int id, int count) {
+  asm volatile("bar.sync %0, %1;" :: "r"(id), "r"(count) : "memory");
+}
+
 // #6: x (C, n) complex raw input, xtail (C, xoff) the carried input before
-// it.  Per superframe T of tb sub-blocks the group computes the sfz
-// matched-filter rows from x_g = T*tb*S*osf + z00 on into shared memory
-// (fp32, taps h_mf), with the mean power of the first tb*S*osf rows; the
-// AGC pre-scale comes from the power EMA of the earlier superframes.
+// it.  Rows: global row R is the matched filter's output at x_g = R + z00,
+// z00 = -(S osf + K - 1 + osf/2); sub-block t reads rows [t hop, t hop + F).
+// A block holds SBF_THREADS / G channels and two kinds of warps.  Consumer
+// warps (the first SBF_THREADS threads, G lanes a channel) run the
+// sub-block loop on the rows in the ring.  Producer warps (GP = G / 2 lanes
+// a channel, one warp for every two consumer warps; GP = G = 1 for S = 1)
+// make the rows: produce(h) waits for hop h's input samples (cp.async,
+// issued one hop ahead), issues hop h + 1's, computes hop h's rows from the
+// staged input (each lane chunks of 4 consecutive rows, a sliding window
+// of 4 samples, every row summed k = 0 .. kmf-1 with separate roundings)
+// into the row ring, and adds their power into per-lane sums (virtual lane
+// jv of G: superframe-local rows jv, jv + G, ... in order, as the plain
+// version's _fused_scales; a producer lane holds G / GP virtual lanes and
+// adds its two first, which is the butterfly's first step).  The
+// producers make hops 0 .. D-1, then in step t hop t + D while the
+// consumers run sub-block t; a named barrier per producer warp and its
+// consumer warps ends every step.  So the filter runs beside the loop and
+// every row is computed once.  When hop T tb starts, superframe T-1's
+// power is complete: the power EMA steps and superframe T's AGC pre-scale
+// goes into the scale ring.
 template <int KMAX>
-__global__ void __launch_bounds__(SB_THREADS)
+__global__ void __launch_bounds__(2 * SBF_THREADS)
 demod_sb_fused_kernel(const float2* __restrict__ x,
                       const float2* __restrict__ xtail, int xoff,
                       const float* __restrict__ h_mf, int kmf,
                       const float* __restrict__ st_in,
                       float* __restrict__ st_out,
                       const float2* __restrict__ sym, SbCfg c, int C, int nsb,
-                      int tb, int sfz, float rms_ref,
+                      int tb, FusedLayout f, bool vec, float rms_ref,
                       float2* __restrict__ y, int* __restrict__ sidx,
                       unsigned char* __restrict__ valid) {
-  extern __shared__ float2 smem[];
-  float2* s_sym = smem;                              // M
-  float* s_h = reinterpret_cast<float*>(s_sym + c.M);  // kmf, padded to even
-  float2* s_z = reinterpret_cast<float2*>(s_h + ((kmf + 1) & ~1));
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int G = c.G, S = c.S, osf = c.osf, n = c.n;
+  const int ngrp = SBF_THREADS / G;
+  const int GP = G > 1 ? G / 2 : 1;      // producer lanes a channel
+  const int V = G / GP;                  // virtual lanes a producer lane
+  const int bar_count = G > 1 ? 96 : 64; // a producer warp + its consumers
+  float* s_h = reinterpret_cast<float*>(smem_raw + ngrp * f.group_bytes);
+  float2* s_sym = reinterpret_cast<float2*>(s_h + (kmf + 3) / 4 * 4);
   for (int i = threadIdx.x; i < c.M; i += blockDim.x) s_sym[i] = sym[i];
   for (int i = threadIdx.x; i < kmf; i += blockDim.x) s_h[i] = h_mf[i];
   __syncthreads();
 
-  const int G = c.G, S = c.S, osf = c.osf, n = c.n;
-  const int j = threadIdx.x % G;
-  const int grp = threadIdx.x / G;
-  const int ch = blockIdx.x * (blockDim.x / G) + grp;
+  const bool consumer = threadIdx.x < SBF_THREADS;
+  const int pt = threadIdx.x - SBF_THREADS;          // producer thread
+  const int grp = consumer ? threadIdx.x / G : pt / GP;
+  unsigned char* gbase = smem_raw + grp * f.group_bytes;
+  float2* ring = reinterpret_cast<float2*>(gbase);                // RG rows
+  float2* xin = ring + f.RG;                                      // input
+  float* s_sc = reinterpret_cast<float*>(xin + f.IRG / 4 * 6);    // SQ
+  const int ch = blockIdx.x * ngrp + grp;
   const bool active = ch < C;
   const int cc = active ? ch : C - 1;
   const int hop = S * osf, hopt = tb * hop, nT = nsb / tb;
+  const int hlast = nsb + f.D - 2;     // the last hop a window reads
+
+  if (consumer) {
+    const int j = threadIdx.x % G;
+    const int bar_id = 1 + (G > 1 ? threadIdx.x / 64 : threadIdx.x / 32);
+    SbState st = sb_load(st_in, cc, C);
+    const long long ldo = (long long)nsb * S;
+    float2* yo = y + (long long)cc * ldo;
+    int* so = sidx + (long long)cc * ldo;
+    unsigned char* vo = valid + (long long)cc * ldo;
+    const int mask = f.RG - 1;
+    float s = 1.f;
+    named_bar(bar_id, bar_count);      // hops 0 .. D-1 are in the ring
+    for (int t = 0; t < nsb; ++t) {
+      if (t % tb == 0) s = s_sc[(t / tb) & (f.SQ - 1)];
+      const int base = t * hop;
+      sb_step<KMAX>(c, st, t, j,
+                    [ring, base, mask](int u) { return ring[(base + u) & mask]; },
+                    s, s_sym, yo, so, vo, active);
+      named_bar(bar_id, bar_count);
+    }
+    if (active && j == 0) sb_store(st_out, cc, C, st);
+    return;
+  }
+
+  const int jp = pt % GP;
+  const int bar_id = 1 + pt / 32;
   const int z00 = -(S * osf + (c.K - 1) + osf / 2);
-  SbState st = sb_load(st_in, cc, C);
+  const bool agc = (c.flags & SB_AGC) != 0;
   float p_ema = st_in[8 * C + cc];
   const float2* xr = x + (long long)cc * n;
   const float2* tr = xtail + (long long)cc * xoff + xoff;   // tr[g], g < 0
-  float2* zw = s_z + (long long)grp * sfz;
-  const long long ldo = (long long)nsb * S;
-  float2* yo = y + (long long)cc * ldo;
-  int* so = sidx + (long long)cc * ldo;
-  unsigned char* vo = valid + (long long)cc * ldo;
 
-  for (int T = 0; T < nT; ++T) {
-    const int g0 = T * hopt + z00;   // x_g of shared row 0
-    float pw = 0.f;
-    for (int r = j; r < sfz; r += G) {
-      const int xg = g0 + r;
-      float zr = 0.f, zi = 0.f;
-      if (xg - (kmf - 1) >= 0 && xg < n) {
-        for (int k = 0; k < kmf; ++k) {
-          const float2 v = __ldg(xr + xg - k);
-          zr = fadd(zr, fmul(s_h[k], v.x));
-          zi = fadd(zi, fmul(s_h[k], v.y));
+  // the AGC pre-scale of a superframe from the EMA of the earlier ones
+  auto scale_of = [&](float pe) {
+    return (agc && pe > 0.f) ? fdiv(rms_ref, __fsqrt_rn(fmaxf(pe, 1e-20f)))
+                             : 1.f;
+  };
+  // samples x_g, g in (lo, hi], into the input ring (lo, hi odd when vec)
+  auto stage = [&](int lo, int hi) {
+    if (vec) {
+      for (int g = lo + 1 + 2 * jp; g <= hi; g += 2 * GP) {
+        const float2* src = g < 0 ? tr + g : xr + (g < n ? g : 0);
+        const int nb = g < 0 ? 16 : (g + 1 < n ? 16 : (g < n ? 8 : 0));
+        cp_async16(xin + in_slot(g, f.IRG), src, nb);
+      }
+    } else {
+      for (int g = lo + 1 + jp; g <= hi; g += GP) {
+        const float2* src = g < 0 ? tr + g : xr + (g < n ? g : 0);
+        cp_async8(xin + in_slot(g, f.IRG), src, g < n ? 8 : 0);
+      }
+    }
+    cp_async_commit();
+  };
+  // the last sample hop h's rows read, rounded up to an odd index
+  auto hop_end = [&](int h) { return (((h + 1) * hop + z00 - 1) | 1); };
+
+  float pw[2] = {0.f, 0.f};   // power sums of virtual lanes jp, jp + GP
+  if (jp == 0) s_sc[0] = scale_of(p_ema);
+  stage(((z00 - kmf + 1) & ~1) - 1, hop_end(0));
+
+  auto produce = [&](int h) {
+    cp_async_wait_all();
+    __syncwarp();
+    if (h + 1 <= hlast) stage(hop_end(h), hop_end(h + 1));
+    const int sf = h / tb;
+    if (h % tb == 0 && h > 0 && sf <= nT) {   // superframe sf - 1 is done
+      float tot = V == 2 ? fadd(pw[0], pw[1]) : pw[0];
+      for (int m = GP >> 1; m > 0; m >>= 1)
+        tot = fadd(tot, __shfl_xor_sync(SB_FULL, tot, m, GP));
+      const float pwt = fdiv(tot, (float)hopt);
+      if (agc) p_ema = p_ema > 0.f
+                           ? fadd(fmul(fsub(1.f, SB_APW), p_ema),
+                                  fmul(SB_APW, pwt))
+                           : pwt;
+      if (jp == 0) s_sc[sf & (f.SQ - 1)] = scale_of(p_ema);
+      pw[0] = pw[1] = 0.f;
+    }
+    const int R0 = h * hop;
+    for (int q = 4 * jp; q < hop; q += 4 * GP) {
+      const int g = R0 + q + z00;    // x_g of row R0 + q
+      float zr[4] = {0.f, 0.f, 0.f, 0.f}, zi[4] = {0.f, 0.f, 0.f, 0.f};
+      float2 w[4];                   // w[i] = x_{g + i - k}
+#pragma unroll
+      for (int i = 0; i < 4; ++i) w[i] = xin[in_slot(g + i, f.IRG)];
+      // taps four at a time from one 16-byte load, then the rest
+      auto tap = [&](float hk, int k) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          zr[i] = fadd(zr[i], fmul(hk, w[i].x));
+          zi[i] = fadd(zi[i], fmul(hk, w[i].y));
         }
-      } else {
-        for (int k = 0; k < kmf; ++k) {
-          const int g = xg - k;
-          const float2 v = g < 0 ? __ldg(tr + g)
-                                 : (g < n ? __ldg(xr + g)
-                                          : make_float2(0.f, 0.f));
-          zr = fadd(zr, fmul(s_h[k], v.x));
-          zi = fadd(zi, fmul(s_h[k], v.y));
+        w[3] = w[2]; w[2] = w[1]; w[1] = w[0];
+        w[0] = xin[in_slot(g - k - 1, f.IRG)];
+      };
+      int k = 0;
+      for (; k + 4 <= kmf; k += 4) {
+        const float4 h4 = *reinterpret_cast<const float4*>(s_h + k);
+        tap(h4.x, k);
+        tap(h4.y, k + 1);
+        tap(h4.z, k + 2);
+        tap(h4.w, k + 3);
+      }
+      for (; k < kmf; ++k) tap(s_h[k], k);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (q + i < hop)
+          ring[(R0 + q + i) & (f.RG - 1)] = make_float2(zr[i], zi[i]);
+    }
+    __syncwarp();
+    if (h < nsb) {                   // rows of superframe sf, in lane order
+      const int base = (h % tb) * hop;
+#pragma unroll
+      for (int v = 0; v < 2; ++v) {
+        if (v >= V) break;
+        const int jv = jp + v * GP;
+        for (int r = base + ((jv - base) & (G - 1)); r < base + hop; r += G) {
+          const float2 z = ring[(sf * hopt + r) & (f.RG - 1)];
+          pw[v] = fadd(pw[v], fsq(z.x, z.y));
         }
       }
-      zw[r] = make_float2(zr, zi);
-      if (r < hopt) pw = fadd(pw, fsq(zr, zi));
     }
-    pw = fdiv(group_sum(pw, G), (float)hopt);
-    const float s = ((c.flags & SB_AGC) && p_ema > 0.f)
-                        ? fdiv(rms_ref, __fsqrt_rn(fmaxf(p_ema, 1e-20f)))
-                        : 1.f;
-    __syncwarp();
-    for (int tbi = 0; tbi < tb; ++tbi) {
-      const float2* fr = zw + tbi * hop;
-      sb_step<KMAX>(c, st, T * tb + tbi, j, [fr](int u) { return fr[u]; },
-                    s, s_sym, yo, so, vo, active);
-    }
-    if (c.flags & SB_AGC)
-      p_ema = p_ema > 0.f
-                  ? fadd(fmul(fsub(1.f, SB_APW), p_ema), fmul(SB_APW, pw))
-                  : pw;
-    __syncwarp();
+  };
+
+  for (int h = 0; h < f.D; ++h) produce(h);
+  named_bar(bar_id, bar_count);
+  for (int t = 0; t < nsb; ++t) {
+    if (t + f.D <= hlast) produce(t + f.D);
+    named_bar(bar_id, bar_count);
   }
-  if (active && j == 0) {
-    sb_store(st_out, cc, C, st);
-    st_out[8 * C + cc] = p_ema;
-  }
+  if (active && jp == 0) st_out[8 * C + cc] = p_ema;
 }
 
 static SbCfg make_cfg(int S, int osf, int K, int nph, int itrp, int M, int n,
@@ -437,16 +609,24 @@ extern "C" int demod_sb_fused_f32(
     cudaStream_t stream) {
   const SbCfg c = make_cfg(S, osf, K, nph, itrp, M, n, tgain, aga, gamma,
                            rho, flags);
-  const int cpb = SB_THREADS / c.G;
+  const FusedLayout f = fused_layout(S, osf, c.G, tb, sfz, kmf, M);
+  if (f.smem != smem_bytes) return (int)cudaErrorInvalidValue;
+  // 16-byte staging where every pair at an even x_g is one aligned line
+  const bool vec = (reinterpret_cast<size_t>(x) % 16 == 0) &&
+                   (reinterpret_cast<size_t>(xtail) % 16 == 0) &&
+                   n % 2 == 0 && xoff % 2 == 0;
+  const int cpb = SBF_THREADS / c.G;
   const unsigned blocks = (unsigned)((C + cpb - 1) / cpb);
+  // consumer threads, then GP = G / 2 producer lanes a channel (1 at G = 1)
+  const int threads = SBF_THREADS + cpb * (c.G > 1 ? c.G / 2 : 1);
 #define SB_FUSED_LAUNCH(KM)                                                  \
   do {                                                                       \
     cudaFuncSetAttribute(demod_sb_fused_kernel<KM>,                          \
                          cudaFuncAttributeMaxDynamicSharedMemorySize,        \
                          smem_bytes);                                        \
-    demod_sb_fused_kernel<KM><<<blocks, SB_THREADS, smem_bytes, stream>>>(   \
-        x, xtail, xoff, h_mf, kmf, st_in, st_out, sym, c, C, nsb, tb, sfz,   \
-        rms_ref, y, sidx, valid);                                            \
+    demod_sb_fused_kernel<KM><<<blocks, threads, smem_bytes, stream>>>(       \
+        x, xtail, xoff, h_mf, kmf, st_in, st_out, sym, c, C, nsb, tb, f,     \
+        vec, rms_ref, y, sidx, valid);                                       \
   } while (0)
   if (kmax == 4)
     SB_FUSED_LAUNCH(4);

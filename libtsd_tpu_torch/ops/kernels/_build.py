@@ -51,7 +51,7 @@ SIGNATURES = {
                            P],
     "ola_f32": [P, P, P, P, I, I64, I, I, P],
     "detfront_f32": [P, P, P, P, P, P, P, I, I, I, I, I, P],
-    "iir_cascade_f32": [P, P, P, P, P, P, P, P, I, I64, I, P],
+    "iir_cascade_f32": [P, P, P, P, P, P, P, P, I, I64, I, P, U32, P],
     "fm_chain_f32": [P, P, P, P, P, I, I64, I, I, F64, F32, F32, F32, F32, P],
     "fir_periodogram4096_halo": [P, P, P, P, P, P, P, P, P, I, I, I64, I, I,
                                  I, I, I, U32, P],

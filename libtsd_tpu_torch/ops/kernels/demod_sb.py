@@ -37,12 +37,13 @@ from . import _build
 
 __all__ = ["LoopParams", "ITRP", "APW", "pick_tb", "fused_layout",
            "interp_taps", "demod_sb", "demod_sb_plain", "demod_sb_fused",
-           "demod_sb_fused_plain"]
+           "demod_sb_fused_plain", "fused_smem"]
 
 ITRP = {"cspline": 0, "linear": 1, "lagrange": 2, "sinc": 3}
 APW = 0.25      # power-EMA update per superframe (the JAX package's _APW)
 _S_MAX = 32     # symbols per sub-block that one warp's lanes can carry
 _M_MAX = 4096   # constellation points held in shared memory
+_SBF_THREADS = 128  # consumer threads a block of #6 (SBF_THREADS)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -401,6 +402,29 @@ def _check_fused(x, xtail, p: LoopParams) -> dict:
 # ------------------------------------------------------------- kernels
 
 
+def _pow2(v: int) -> int:
+    return 1 << max(v - 1, 0).bit_length()
+
+
+def fused_smem(p: LoopParams, lay: dict, kmf: int, M: int) -> dict:
+    """#6's shared-memory layout (csrc/demod_sb.cu's fused_layout): a
+    sub-block's window spans D hops of matched-filter rows; per channel a
+    ring of RG >= (D + 1) hop rows, an input ring of IRG >= 2 hop + kmf + 2
+    samples (6 float2 slots per 4 samples) and SQ >= D + 2 superframe
+    scales (powers of 2), then the taps and the constellation."""
+    hop = p.S * p.osf
+    G = _pow2(p.S)
+    F = lay["SFZ"] - lay["hopt"] + hop
+    D = -(-F // hop)
+    RG = _pow2((D + 1) * hop)
+    IRG = max(_pow2(2 * hop + kmf + 2), 4)
+    SQ = max(_pow2(D + 2), 4)
+    group = RG * 8 + IRG // 4 * 48 + SQ * 4
+    return dict(D=D, RG=RG, IRG=IRG, SQ=SQ, group_bytes=group,
+                smem=(_SBF_THREADS // G) * group + (kmf + 3) // 4 * 16
+                + (M + 1) // 2 * 16)
+
+
 def _kmax(K: int) -> int:
     for km in (4, 16, 32):
         if K <= km:
@@ -484,12 +508,10 @@ def demod_sb_fused(x: torch.Tensor, xtail: torch.Tensor,
     y, sidx, valid = _outputs(C, p, x.device)
     st = torch.empty_like(state9)
     _build.require_cuda(x, xtail, state9, sym, h_mf, y, sidx, valid, st)
-    G = 1 << (p.S - 1).bit_length()
-    smem = (sym.shape[0] * 8 + ((kmf + 1) & ~1) * 4
-            + (128 // G) * lay["SFZ"] * 8)
+    smem = fused_smem(p, lay, kmf, sym.shape[0])["smem"]
     if smem > _build.SMEM_MAX:
-        raise ValueError(f"a superframe of {lay['SFZ']} rows needs {smem} "
-                         f"bytes of shared memory")
+        raise ValueError(f"the fused kernel's rings need {smem} bytes of "
+                         f"shared memory")
     if C:
         err = _build.lib().demod_sb_fused_f32(
             _build.ptr(x), _build.ptr(xtail), lay["XOFF"], _build.ptr(h_mf),

@@ -13,7 +13,10 @@ returns (y, final state); complex input is refused.
 Per section: u_j = x_j W (the input -> state update of frame j), the hop
 s_{j+1} = M s_j + u_j across frames, y_j = x_j T + s_j S; the sections
 chain on chip.  What bounds the kernel and what its design does about it is
-set out at the top of ``csrc/iir.cu``.
+set out at the top of ``csrc/iir.cu``: a grid over (channel, chunk of 64
+frames) whose blocks hand each section's end state to the next chunk
+through a workspace of flags and carries, which the wrapper keeps per
+device and stream and tags with a per-call epoch.
 
 A wrapper given CPU tensors runs the plain version (:func:`iir_cascade_plain`:
 the same frame algebra, the hop as a loop over the frames as the Pallas
@@ -32,7 +35,8 @@ from ...config import device as _device, real_dtype
 from ..filter_rt import _iir_frame_mats
 from . import _build
 
-__all__ = ["IirCascade", "iir_cascade", "iir_cascade_plain"]
+__all__ = ["IirCascade", "iir_cascade", "iir_cascade_plain",
+           "workspace_words"]
 
 _L = 128
 _KP = 8      # padded state width (k <= _KP)
@@ -146,6 +150,36 @@ def iir_cascade_plain(x: torch.Tensor, T, S, W, M,
     return cur.reshape(C, N), torch.stack(out, 1)
 
 
+_FR = 64     # frames per chunk of the kernel's grid (csrc/iir.cu's FR)
+
+
+def workspace_words(C: int, N: int, nsec: int) -> int:
+    """32-bit words of the kernel's workspace: the ticket and 3 words of
+    padding, then a flag and an 8-float carry per (channel, chunk of 64
+    frames, section)."""
+    nchunk = -(-(N // _L) // _FR)
+    return 4 + C * nchunk * nsec * (1 + _KP)
+
+
+class _Workspace:
+    """The carries, flags and ticket of the kernel, kept per (device,
+    stream) and reused across calls; zeroed when made or grown.  Each call
+    takes the next epoch (never 0), which tags the flags it sets."""
+
+    def __init__(self):
+        self.buf = None
+        self.epoch = 0
+
+    def take(self, words: int, device) -> tuple:
+        if self.buf is None or self.buf.numel() < words:
+            self.buf = torch.zeros(words, dtype=torch.int32, device=device)
+        self.epoch = self.epoch % 0xFFFFFFFF + 1
+        return self.buf, self.epoch
+
+
+_workspaces: dict = {}
+
+
 def iir_cascade(x: torch.Tensor, T, S, W, M,
                 state: Optional[torch.Tensor] = None, tb: int = 64):
     """x (C, N) float32, N % (tb * 128) == 0; T/S/W/M the stacked section
@@ -154,14 +188,20 @@ def iir_cascade(x: torch.Tensor, T, S, W, M,
     C, N, nsec, state = _check(x, T, S, W, M, state, tb)
     if _build.use_plain(x):
         return iir_cascade_plain(x, T, S, W, M, state, tb)
+    # contiguous and 16-byte aligned: the kernel reads x, S and W as float4
     args = [v.to(real_dtype).contiguous() for v in (x, T, S, W, M, state)]
+    args = [v if v.data_ptr() % 16 == 0 else v.clone() for v in args]
     y = torch.empty_like(args[0])
     st = torch.empty_like(args[5])
     if C and N:
         _build.require_cuda(*args, y, st)
+        stream = torch.cuda.current_stream(x.device)
+        ws = _workspaces.setdefault((x.device, stream.cuda_stream),
+                                    _Workspace())
+        buf, epoch = ws.take(workspace_words(C, N, nsec), x.device)
         err = _build.lib().iir_cascade_f32(
             *map(_build.ptr, args), _build.ptr(y), _build.ptr(st), C, N, nsec,
-            _build.stream_ptr(x.device))
+            _build.ptr(buf), epoch, _build.stream_ptr(x.device))
         _build.check(err, "iir_cascade_f32")
         iir_cascade.launches += 1
     else:

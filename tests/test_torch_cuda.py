@@ -270,6 +270,47 @@ def test_demod_sb_fused_kernel(dev, M, C):
         st = dd.step(st, xb)[0]
 
 
+# #6's rings against its plain version, bit for bit: S 8 (four channels a
+# warp), 16 and 32 (one a warp); nsb giving tb 8, 2 and 1; the 129-tap
+# matched filter; C = 1 and C not a multiple of a block's channels; three
+# consecutive blocks, each from the kernel's carried state and input tail.
+@pytest.mark.parametrize("S,n,tb,kmf,C,M", [(16, 2048, 8, 0, 77, 16),
+                                            (16, 640, 2, 0, 1, 4),
+                                            (16, 576, 1, 129, 40, 4),
+                                            (8, 2048, 8, 0, 33, 4),
+                                            (32, 2048, 8, 0, 9, 16),
+                                            (32, 384, 1, 129, 5, 4)])
+def test_demod_sb_fused_rings_bit_identical(dev, S, n, tb, kmf, C, M):
+    from libtsd_tpu_torch.models.demod_sb import (DecisionDemodSB,
+                                                  SBDemodConfig, pack_state)
+    from libtsd_tpu_torch.ops.kernels import demod_sb as KSB
+    wf, _, x = _qam(dev, M, C, 3 * n // 4 + 64, 11 * S + C)
+    dd = DecisionDemodSB.create(wf, SBDemodConfig(osf=4, S=S,
+                                                  engine="cuda-fused"),
+                                device=dev)
+    h_mf = dd.h_mf
+    if kmf:
+        h_mf = torch.as_tensor(np.random.default_rng(kmf).standard_normal(
+            kmf).astype(np.float32) / np.sqrt(kmf), device=dev)
+    st = dd.init_for(x[:, :n])
+    xtail, s9 = st["xtail"], pack_state(st)
+    p = dd.loop_params(n)
+    assert KSB.fused_layout(4, S, p.K, n)["tb"] == tb
+    for blk in range(3):
+        xb = x[:, blk * n:(blk + 1) * n].contiguous()
+        args = (xb, xtail, s9, wf.symbols, h_mf, p, dd.rms_ref)
+        before = KSB.demod_sb_fused.launches
+        yk, sk, vk, stk = KSB.demod_sb_fused(*args)
+        assert KSB.demod_sb_fused.launches == before + 1
+        yp, sp, vp, stp = KSB.demod_sb_fused_plain(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(vk, vp) and torch.equal(sk, sp)
+        assert (yk - yp).abs().max().item() == 0
+        assert (stk - stp).abs().max().item() == 0
+        xtail = torch.cat([xtail, xb], 1)[:, -xtail.shape[1]:].contiguous()
+        s9 = stk
+
+
 @pytest.mark.parametrize("engine", ["cuda", "cuda-fused"])
 def test_qam16_engines_decode_on_card(dev, engine):
     """Both engines decode QAM-16 on the card: tail EVM < 0.2 and zero
@@ -500,6 +541,56 @@ def test_iir_cascade_streaming_bit_identical_on_card(dev):
         yb, st = casc(xb.contiguous(), st)
         ys.append(yb)
     assert torch.equal(torch.cat(ys, 1), y1) and torch.equal(st, s1)
+
+
+@pytest.mark.parametrize("order,C,N", [(4, 1, 128 * 8), (4, 200, 128 * 72),
+                                       (8, 200, 128 * 64 * 2 + 128 * 8)])
+def test_iir_cascade_grid_shapes(dev, order, C, N):
+    """#7's (channel, chunk) grid at C = 1, C = 200 and order 8 (4
+    sections), with a last chunk of 8 frames, against its plain version."""
+    from libtsd_tpu_torch.ops.kernels import iir
+    secs, _, _ = _butter_sections(order, 0.1)
+    casc = iir.IirCascade(secs, device=dev)
+    g = torch.Generator(device=dev).manual_seed(C + order)
+    x = torch.randn(C, N, generator=g, device=dev)
+    yk, sk = casc(x, tb=8)
+    yp, sp = iir.iir_cascade_plain(x, casc.T, casc.S, casc.W, casc.M, tb=8)
+    assert rel(yk, yp) < 1e-5 and rel(sk, sp) < 1e-5
+
+
+@pytest.mark.parametrize("C", [1, 3])
+def test_iir_cascade_stream_cut_off_chunks_bit_identical(dev, C):
+    """Calls of 8, 72 and 432 frames (no chunk size of the grid divides
+    them all) with the state carried are bit-identical to one call."""
+    from libtsd_tpu_torch.ops.kernels import iir
+    secs, _, _ = _butter_sections(4, 0.1)
+    casc = iir.IirCascade(secs, device=dev)
+    g = torch.Generator(device=dev).manual_seed(8 + C)
+    x = torch.randn(C, 128 * 512, generator=g, device=dev)
+    y1, s1 = casc(x, tb=8)
+    st, ys, f0 = None, [], 0
+    for nf in (8, 72, 432):
+        yb, st = casc(x[:, f0 * 128:(f0 + nf) * 128].contiguous(), st, tb=8)
+        ys.append(yb)
+        f0 += nf
+    assert torch.equal(torch.cat(ys, 1), y1) and torch.equal(st, s1)
+
+
+def test_iir_cascade_two_calls_in_flight(dev):
+    """Two calls on one stream with no sync between them share the
+    workspace; each call's epoch keeps its flags apart."""
+    from libtsd_tpu_torch.ops.kernels import iir
+    secs, _, _ = _butter_sections(4, 0.1)
+    casc = iir.IirCascade(secs, device=dev)
+    g = torch.Generator(device=dev).manual_seed(2)
+    xs = [torch.randn(16, 128 * 256, generator=g, device=dev)
+          for _ in range(2)]
+    torch.cuda.synchronize()
+    outs = [casc(x) for x in xs]
+    torch.cuda.synchronize()
+    for x, (yk, sk) in zip(xs, outs):
+        yp, sp = iir.iir_cascade_plain(x, casc.T, casc.S, casc.W, casc.M)
+        assert rel(yk, yp) < 1e-5 and rel(sk, sp) < 1e-5
 
 
 @pytest.mark.parametrize("f0,deemph,C,N", [(0.25, 0.05, 3, 4 * 4096 * 3),

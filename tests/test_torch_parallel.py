@@ -25,6 +25,7 @@ import os
 import socket
 import subprocess
 import sys
+import time
 
 import jax
 import jax.numpy as jnp
@@ -52,7 +53,7 @@ from libtsd_tpu_torch.parallel import (gather, halo_exchange_left, launch,
                                        sharded_fir,
                                        sharded_fir_periodogram4096,
                                        sharded_fm_receiver)
-import torch_compare  # noqa: F401  (caps torch's threads)
+from torch_compare import THREAD_ENV  # (importing it caps the threads)
 
 CPU8 = ["cpu"] * 8
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -506,16 +507,18 @@ def test_launch_two_processes():
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
-    env = {**os.environ, "OMP_NUM_THREADS": "1", "PYTHONPATH": REPO
+    env = {**os.environ, **THREAD_ENV, "PYTHONPATH": REPO
            + os.pathsep + os.environ.get("PYTHONPATH", "")}
     procs = [subprocess.Popen(
         [sys.executable, "-c", _WORKER, f"127.0.0.1:{port}", "2", str(p)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
         for p in range(2)]
     outs = []
+    deadline = time.monotonic() + 120     # both workers, not each
     try:
         for p in procs:
-            outs.append(p.communicate(timeout=120)[0])
+            outs.append(p.communicate(
+                timeout=max(deadline - time.monotonic(), 1))[0])
     finally:
         for p in procs:
             if p.poll() is None:

@@ -7,6 +7,7 @@ stages round to bf16 on purpose, the gate of tests/test_pallas.py); 1e-5
 against a float64 reference with the same bf16-rounded taps, and between
 the port's fused, composed and streamed forms (all fp32); there also 1e-3
 per bin with a floor of 1e-6 of the peak, for the stopband bins."""
+import os
 import re
 import subprocess
 import sys
@@ -26,7 +27,7 @@ from libtsd_tpu_torch.ops.kernels.fft import fft_pow2
 from libtsd_tpu_torch.ops.kernels.fir import fir_kernel
 from libtsd_tpu_torch.ops.kernels.periodogram import periodogram4096_acc
 from libtsd_tpu_torch.utils.convert import fir_from_jax
-from torch_compare import rel, bin_err
+from torch_compare import THREAD_ENV, bin_err, rel
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -77,7 +78,8 @@ def test_port_imports_no_jax():
             "('jax', 'jaxlib', 'flax', 'libtsd_tpu')]; "
             "assert not bad, bad")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                       capture_output=True, text=True, timeout=120)
+                       capture_output=True, text=True, timeout=120,
+                       env={**os.environ, **THREAD_ENV})
     assert r.returncode == 0, r.stderr
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|libtsd_tpu)\b",
                      re.M)

@@ -3,12 +3,15 @@
 and keeps its own).
 
 Importing this module caps torch at one intra-op thread, and at one
-inter-op thread where torch still allows it.  The tests run in several
-xdist workers, each of which imports every test file; with torch's
-default of one thread per core, the workers' thread pools and XLA's
-virtual CPU devices contend for the same cores and a small loop runs tens
-of times slower.  The tests use tensors of a few thousand samples, where
-one thread loses little.
+inter-op thread where torch still allows it, and numpy's BLAS and OpenMP
+pools at one thread (through threadpoolctl, where it is installed).  The
+tests run in several xdist workers, each of which imports every test
+file; with the default of one thread per core in every pool, the workers'
+thread pools and XLA's virtual CPU devices contend for the same cores and
+a small loop runs tens of times slower, the more so on a machine that
+other jobs share.  The tests use arrays of a few thousand samples, where
+one thread loses little.  ``THREAD_ENV`` carries the same caps into the
+subprocesses that a test starts.
 """
 from __future__ import annotations
 
@@ -20,6 +23,15 @@ try:
     torch.set_num_interop_threads(1)
 except RuntimeError:     # raised once inter-op work has started
     pass
+try:
+    from threadpoolctl import threadpool_limits
+except ImportError:      # the caps above still hold
+    threadpool_limits = None
+if threadpool_limits is not None:
+    threadpool_limits(1)
+
+THREAD_ENV = {k: "1" for k in ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS",
+                               "MKL_NUM_THREADS")}
 
 
 def _np(a) -> np.ndarray:
