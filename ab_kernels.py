@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time kernels #2-#7 and #11 of other trees of the port against this
+"""Time kernels #2-#8 and #11 of other trees of the port against this
 tree's.
 
     python3 ab_kernels.py [--stages] [--only GROUPS] DIR [DIR ...]
@@ -12,14 +12,17 @@ of the QAM path (4096 channels, QAM-16, osf 4, S 16; through each tree's
 own wrapper, the two trees' results bit for bit alike and this tree's
 bit for bit its plain version's), #7 on 64 x 2^18 float32 samples (an
 order-4 Butterworth lowpass as 2 sections; alike bit for bit, 1e-5 of the
-peak against plain), #3 on 256 x 2^22 samples at every tier (int16/2 and
+peak against plain), #8 on the FM path's 256 x 2^18 complex samples (R 4,
+63 taps; the two trees within 1e-5 of each other and each within 1e-5 of
+this tree's plain version, max |error|), #3 on 256 x 2^22 samples at every tier (int16/2 and
 /3; split/2, /3 and "highest" on the int16 samples as float32; bf16 on
 them as bfloat16; int8 on int8 samples), #11 on the int16 samples cut
 into 2 rows of 4 time shards (8 virtual shards of the card, int16/2; each
 row's launches in time order, one call the 8 launches), #2 on a random
 256 x 2^22 float32 input and on its first channel, #4 on 8188 x 4096
 planes (the main path's Welch call).  --only takes a comma list of the
-groups "sb" (#5, #6), "iir" (#7), "chain" (#3, #11) and "fft" (#2, #4);
+groups "sb" (#5, #6), "iir" (#7), "fm" (#8), "chain" (#3, #11) and
+"fft" (#2, #4);
 all by default.  Each pair is timed other, this, this, other with
 ``chip_smoke.time_ms``; #2-#4 and #11 are held to this tree's plain
 version (1e-4 of the peak; the spectra also 1e-3 per bin).  --stages also
@@ -42,8 +45,8 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 NFFT = 4096
-GROUPS = ("fft", "chain", "sb", "iir")   # --only: kernels #2/#4, #3/#11,
-                                          # #5/#6, #7
+GROUPS = ("fft", "chain", "sb", "iir", "fm")   # --only: kernels #2/#4,
+                                                # #3/#11, #5/#6, #7, #8
 
 
 def _first_port_taps(G, precision, passes):
@@ -285,6 +288,8 @@ def ab_tree(other: str, y: torch.Tensor, x: torch.Tensor, G: torch.Tensor,
     res = {}
     if only & {"sb", "iir"}:
         res.update(ab_sb_iir(ob, other, inp, only))
+    if "fm" in only:
+        res.update(ab_fm(ob, other, inp))
     if "chain" in only:
         res.update(ab_chain(ob, olib, other, x, G, dev))
     if "fft" not in only:
@@ -407,6 +412,47 @@ def ab_sb_iir(ob, other: str, inp: dict, only=GROUPS) -> dict:
     return res
 
 
+def fm_inputs(dev: torch.device) -> dict:
+    """#8's planes and chain for the FM path (``chip_smoke.py``'s working
+    set: 256 x 2^18 FM tones at channel_freq 0.25, R 4, 63 taps)."""
+    import chip_smoke as cs
+    from libtsd_tpu_torch.models.receivers import FmReceiverConfig
+    from libtsd_tpu_torch.ops.kernels.fm import FmChain
+    gen = torch.Generator(device=dev).manual_seed(4)
+    cfg = FmReceiverConfig(channel_freq=0.25)
+    x, _ = cs.fm_signal(gen, dev, cs.C_FM, cfg.channel_freq)
+    fc = FmChain(cfg.channel_freq, cfg.decim, cfg.chan_taps, cfg.deviation,
+                 cfg.deemph_fc, device=dev)
+    return dict(xr=x.real.contiguous(), xi=x.imag.contiguous(), fc=fc)
+
+
+def ab_fm(ob, other: str, inp: dict) -> dict:
+    """#8 of the other tree against this tree's, in turns, through each
+    tree's own wrapper: each within TOL_FM (max |error|) of this tree's
+    plain version and of the other tree's result."""
+    import chip_smoke as cs
+    from libtsd_tpu_torch.ops.kernels import fm
+    ofm = other_wrapper(ob, other, "fm")
+    fc, xr, xi = inp["fc"], inp["xr"], inp["xi"]
+    kw = dict(R=fc.R, f0=fc.f0, dev=fc.dev, b0=fc.b0, c=fc.c, p=fc.p,
+              tb=cs.TB_FM)
+    name = "fm_chain 256x2^18 R 4 63 taps"
+    oth = lambda: ofm.fm_chain(xr, xi, fc.h, **kw)          # noqa: E731
+    this = lambda: fm.fm_chain(xr, xi, fc.h, **kw)          # noqa: E731
+    a, b, ref = oth(), this(), fm.fm_chain_plain(xr, xi, fc.h, **kw)
+    for who, u, v in (("other tree vs plain", a, ref),
+                      ("this tree vs plain", b, ref),
+                      ("this tree vs other tree", b, a)):
+        d = (u - v).abs().max().item()
+        ok = d < cs.TOL_FM
+        print(f"check ab {name} {who}: max_abs_err={d:.3e} tol "
+              f"{cs.TOL_FM:g} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            FAILED.append(f"{other}: {name}: {who}")
+    del a, b, ref
+    return {name: turns(name, other, oth, this)}
+
+
 def main() -> int:
     argv = sys.argv[1:]
     only = set(GROUPS)
@@ -437,7 +483,9 @@ def main() -> int:
     G = torch.as_tensor(fir_toeplitz_mats(np.asarray(fir_lowpass(256, 0.2),
                                                      np.float64))
                         .astype(np.float32), device=dev)
-    inp = sb_iir_inputs(dev) if only & {"sb", "iir"} else None
+    inp = sb_iir_inputs(dev) if only & {"sb", "iir"} else {}
+    if "fm" in only:
+        inp.update(fm_inputs(dev))
     for d in args:
         ab_tree(d, y, x, G, dev, only, inp)
     if "--stages" in argv:

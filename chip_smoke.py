@@ -737,7 +737,8 @@ def qam_timings(x, qp) -> dict:
         print(f"time qam {eng}: step {ms_step:.4f} ms ({rate:.1f} "
               f"Msamples/s aggregate, {C_QAM} x {N_QAM}); kernel {name} "
               f"{ms_k:.4f} ms, plain {ms_p:.4f} ms, bound {bms:.4f} ms by "
-              f"{by}; library call none")
+              f"{by} ({100 * bms / ms_k:.1f} % of the bound); library call "
+              f"none")
         out[name] = (ms_k, ms_p, bms, by, None, ms_step, rate)
         del args
         torch.cuda.empty_cache()
@@ -1217,8 +1218,8 @@ def fm_timings(fp):
     print(f"time fm: composed FmReceiver.step {ms_step:.4f} ms "
           f"({C * N / ms_step / 1e3:.1f} Msamples/s in, {C} x {N}); "
           f"fm_chain (#8) kernel {ms_k:.4f} ms ({C * N / ms_k / 1e3:.1f} "
-          f"Msamples/s), plain {ms_p:.4f} ms, bound {bms:.4f} ms by {by}; "
-          f"library call none")
+          f"Msamples/s), plain {ms_p:.4f} ms, bound {bms:.4f} ms by {by} "
+          f"({100 * bms / ms_k:.1f} % of the bound); library call none")
     return {"fm_chain": (ms_k, ms_p, bms, by, None)}, ms_step
 
 

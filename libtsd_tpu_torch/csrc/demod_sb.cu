@@ -24,10 +24,18 @@
 // interpolations, decision, TED term and phase error; warp shuffles form
 // the sums of the TED terms, phase errors and AGC errors; every lane then
 // applies the same loop update, so the state stays in registers.  C = 4096
-// channels give 2048 warps, ~16 per SM.  The window reads zp in place at
-// the channel's own offset (a plain indexed read: no materialised frame
-// stack, no lane-shift network), and the phase error is atan2f (the TPU
-// kernel used a polynomial).  #6 runs the same sub-block step on fp32
+// channels give 2048 warps, ~16 per SM: too few to hide a step's latency,
+// so a step's own chain sets the time.  #5 therefore keeps the device
+// memory off it: each group stages sub-block t + 1's window samples from zp
+// into a ring in shared memory by cp.async while sub-block t runs (the
+// window's start within the frame depends on the state, the frame's does
+// not), and the step reads the ring.  The step's chain is short: the
+// interpolator taps come from a table of the nph + 1 quantised phases made
+// once per launch, S and nph (powers of 2) divide as exact reciprocal
+// multiplications, one sincosf, the nearest point by a tree over 16-point
+// chunks, the three lane sums in one butterfly; every result is the
+// plain version's bit for bit.  The phase error is atan2f (the TPU kernel
+// used a polynomial).  #6 runs the same sub-block step on fp32
 // matched-filter rows that it computes itself, with their power for the
 // AGC's EMA; the filtered signal never reaches device memory.  Producer
 // warps stage the input in shared memory by cp.async one hop (S osf
@@ -44,6 +52,7 @@
 #define SBF_THREADS 128  // consumer threads a block of #6 (producers beside)
 #define SB_APW 0.25f
 #define SB_FULL 0xffffffffu
+#define SB_FAR 3.0e38f
 
 enum { SB_CARRIER = 1, SB_CLOCK = 2, SB_AGC = 4 };
 enum { ITRP_CSPLINE = 0, ITRP_LINEAR = 1, ITRP_LAGRANGE = 2, ITRP_SINC = 3 };
@@ -51,6 +60,7 @@ enum { ITRP_CSPLINE = 0, ITRP_LINEAR = 1, ITRP_LAGRANGE = 2, ITRP_SINC = 3 };
 struct SbCfg {
   int S, osf, K, nph, itrp, M, n, G, flags;
   float tgain, aga, gamma, rho;
+  float inv_S, inv_nph;   // 1 / S and 1 / nph where a power of 2, else 0
 };
 
 struct SbState {
@@ -96,24 +106,26 @@ __device__ __forceinline__ float fsq(float a, float b) {   // a^2 + b^2
   return fadd(fmul(a, a), fmul(b, b));
 }
 
-// Sum over the G lanes of a group by an xor butterfly (every lane ends
-// with the same value: IEEE addition commutes).
-__device__ __forceinline__ float group_sum(float v, int G) {
-  for (int m = G >> 1; m > 0; m >>= 1)
-    v = fadd(v, __shfl_xor_sync(SB_FULL, v, m, G));
-  return v;
+// The divisors S and nph of a configuration, as `x / d`: a multiplication
+// by the exact reciprocal `inv` where d is a power of two (the same bits:
+// both round the same real number once), else an IEEE division.
+__device__ __forceinline__ float fdiv_cfg(float x, float d, float inv) {
+  return inv != 0.f ? fmul(x, inv) : fdiv(x, d);
 }
 
-// Fractional-delay taps in closed form at the LUT-quantised tau: the
-// formulas of ops/resample.py's builders (cspline_coefs, linear_coefs,
+// The interpolator's quantised phase index rint(clamp(tau) nph), 0 .. nph.
+__device__ __forceinline__ float sb_phase(float tau, int nph) {
+  return rintf(fmul(fminf(fmaxf(tau, 0.f), 1.f), (float)nph));
+}
+
+// Fractional-delay taps in closed form at the quantised tau t = q / nph:
+// the formulas of ops/resample.py's builders (cspline_coefs, linear_coefs,
 // lagrange_coefs of degree K - 1, sinc_interp_coefs with fc = 0.5 and the
 // tau-shifted Hann window), as the JAX package evaluates them.  KMAX >= 4.
 template <int KMAX>
-__device__ __forceinline__ void sb_taps(int itrp, float tau, int nph, int K,
+__device__ __forceinline__ void sb_taps(int itrp, float t, int K,
                                         float (&tp)[KMAX]) {
   static_assert(KMAX >= 4, "KMAX >= 4");
-  const float t =
-      fdiv(rintf(fmul(fminf(fmaxf(tau, 0.f), 1.f), (float)nph)), (float)nph);
 #pragma unroll
   for (int k = 0; k < KMAX; ++k) tp[k] = 0.f;
   if (itrp == ITRP_CSPLINE) {
@@ -165,13 +177,54 @@ __device__ __forceinline__ void sb_taps(int itrp, float tau, int nph, int K,
   }
 }
 
+// The taps at tau from the closed form (#6, and #5 where the table does not
+// fit).
+template <int KMAX>
+struct TapsClosed {
+  int itrp, nph, K;
+  float inv_nph;
+  __device__ __forceinline__ void operator()(float tau,
+                                             float (&tp)[KMAX]) const {
+    sb_taps<KMAX>(itrp, fdiv_cfg(sb_phase(tau, nph), (float)nph, inv_nph), K,
+                  tp);
+  }
+};
+
+// #5's taps from the per-launch table of the nph + 1 quantised phases, row
+// q = sb_taps(q / nph) (the same function on the same t: the same bits),
+// KT floats a row (4 at KMAX 4: one 16-byte load).
+template <int KMAX>
+struct TapsTable {
+  TapsClosed<KMAX> closed;
+  const float* tab;   // nullptr: the closed form
+  int kt;
+  __device__ __forceinline__ void operator()(float tau,
+                                             float (&tp)[KMAX]) const {
+    if (tab == nullptr) {
+      closed(tau, tp);
+      return;
+    }
+    const int q = (int)sb_phase(tau, closed.nph);
+    if constexpr (KMAX == 4) {
+      const float4 v = *reinterpret_cast<const float4*>(tab + 4 * q);
+      tp[0] = v.x; tp[1] = v.y; tp[2] = v.z; tp[3] = v.w;
+    } else {
+#pragma unroll
+      for (int k = 0; k < KMAX; ++k)
+        tp[k] = k < closed.K ? tab[q * kt + k] : 0.f;
+    }
+  }
+};
+
 // One sub-block of one channel, lane j of its group.  win(u) returns the
 // window sample at frame offset u, where the frame of sub-block t starts
-// ML + (K - 1) + osf/2 samples before the nominal pointer t*S*osf; the
-// interpolated sums are multiplied by `scale` (the fused AGC pre-scale).
-template <int KMAX, class Win>
+// ML + (K - 1) + osf/2 samples before the nominal pointer t*S*osf; taps(tau,
+// tp) gives the interpolator's taps; the interpolated sums are multiplied
+// by `scale` (the fused AGC pre-scale).
+template <int KMAX, class Win, class Taps>
 __device__ __forceinline__ void sb_step(const SbCfg& c, SbState& st, int t,
-                                        int j, const Win& win, float scale,
+                                        int j, const Win& win, const Taps& taps,
+                                        float scale,
                                         const float2* __restrict__ s_sym,
                                         float2* yo, int* so,
                                         unsigned char* vo, bool active) {
@@ -187,7 +240,7 @@ __device__ __forceinline__ void sb_step(const SbCfg& c, SbState& st, int t,
   const int o = (int)fminf(fmaxf(o_raw, 0.f), (float)(ML + MH));
 
   float tp[KMAX];
-  sb_taps<KMAX>(c.itrp, tau, c.nph, c.K, tp);
+  taps(tau, tp);
   const int jr = j < S ? j : S - 1;   // lanes past S read in bounds
   const int u0 = o + jr * osf;
   float mr = 0.f, mi = 0.f, yr = 0.f, yi = 0.f;
@@ -207,20 +260,55 @@ __device__ __forceinline__ void sb_step(const SbCfg& c, SbState& st, int t,
 
   // carrier phase ramped inside the sub-block: theta_j = theta + j mu / S;
   // y = raw exp(-i theta_j) gain
-  const float th = fadd(st.theta, fmul((float)j, fdiv(st.lf_mu, (float)S)));
-  const float cs = cosf(th), sn = sinf(th);
+  const float th = fadd(st.theta, fmul((float)j, fdiv_cfg(st.lf_mu, (float)S,
+                                                          c.inv_S)));
+  float sn, cs;
+  sincosf(th, &sn, &cs);
   const float y_r = fmul(fadd(fmul(yr, cs), fmul(yi, sn)), st.gain);
   const float y_i = fmul(fsub(fmul(yi, cs), fmul(yr, sn)), st.gain);
   const float m_r = fmul(fadd(fmul(mr, cs), fmul(mi, sn)), st.gain);
   const float m_i = fmul(fsub(fmul(mi, cs), fmul(mr, sn)), st.gain);
 
-  // nearest constellation point (the first minimum, as argmin)
-  float best = INFINITY, ye_r = 0.f, ye_i = 0.f;
-  int bi = 0;
-  for (int m = 0; m < c.M; ++m) {
-    const float2 sm = s_sym[m];
-    const float d2 = fsq(fsub(y_r, sm.x), fsub(y_i, sm.y));
-    if (d2 < best) { best = d2; bi = m; ye_r = sm.x; ye_i = sm.y; }
+  // nearest constellation point: the first minimum of a strict-< serial
+  // scan, which never takes a NaN distance and takes nothing where every
+  // distance is NaN or inf (then index 0 and ye = 0).  Chunks of 16 points
+  // (s_sym padded with far points) reduce as trees: a pair keeps its lower
+  // point unless the upper one is nearer or the lower one's distance is
+  // NaN; then chunk after chunk in order by strict <.
+  float best = INFINITY;
+  int bi = -1;
+  for (int m0 = 0; m0 < c.M; m0 += 16) {
+    float d[16];
+    int ix[16];
+#pragma unroll
+    for (int i = 0; i < 16; i += 2) {
+      const float4 sp = *reinterpret_cast<const float4*>(s_sym + m0 + i);
+      const float d0 = fsq(fsub(y_r, sp.x), fsub(y_i, sp.y));
+      const float d1 = fsq(fsub(y_r, sp.z), fsub(y_i, sp.w));
+      d[i] = d0;
+      d[i + 1] = d1;
+      ix[i] = m0 + i;
+      ix[i + 1] = m0 + i + 1;
+    }
+#pragma unroll
+    for (int s = 1; s < 16; s <<= 1) {
+#pragma unroll
+      for (int i = 0; i < 16; i += 2 * s) {
+        if (d[i + s] < d[i] || d[i] != d[i]) {
+          d[i] = d[i + s];
+          ix[i] = ix[i + s];
+        }
+      }
+    }
+    if (d[0] < best) { best = d[0]; bi = ix[0]; }
+  }
+  float ye_r = 0.f, ye_i = 0.f;
+  if (bi >= 0) {
+    const float2 sm = s_sym[bi];
+    ye_r = sm.x;
+    ye_i = sm.y;
+  } else {
+    bi = 0;
   }
 
   // Gardner TED over the sub-block, y_{-1} carried
@@ -240,12 +328,18 @@ __device__ __forceinline__ void sb_step(const SbCfg& c, SbState& st, int t,
                         fmaxf(__fsqrt_rn(fsq(ye_r, ye_i)), 1e-9f));
   const float e_g = lane_ok ? fdiv(1.f, fmaxf(eg, 1e-9f)) : 0.f;
 
-  const float sum_t = group_sum(e_t, G);
-  const float e_mean = fdiv(group_sum(e_ph, G), (float)S);
-  const float g_mean = fdiv(group_sum(e_g, G), (float)S);
+  // the sums over the G lanes of the group, three values in one xor
+  // butterfly (every lane ends with the same sums: IEEE addition commutes)
+  float sum_t = e_t, sum_ph = e_ph, sum_g = e_g;
+  for (int m = G >> 1; m > 0; m >>= 1) {
+    sum_t = fadd(sum_t, __shfl_xor_sync(SB_FULL, sum_t, m, G));
+    sum_ph = fadd(sum_ph, __shfl_xor_sync(SB_FULL, sum_ph, m, G));
+    sum_g = fadd(sum_g, __shfl_xor_sync(SB_FULL, sum_g, m, G));
+  }
+  const float e_mean = fdiv_cfg(sum_ph, (float)S, c.inv_S);
+  const float g_mean = fdiv_cfg(sum_g, (float)S, c.inv_S);
   const float yl_r = __shfl_sync(SB_FULL, y_r, S - 1, G);
   const float yl_i = __shfl_sync(SB_FULL, y_i, S - 1, G);
-
   const float dec = fminf(fmaxf(fmul(c.tgain, sum_t), -0.5f * (float)osf),
                           0.5f * (float)osf);
   const bool upd = ready && inrange;
@@ -279,44 +373,22 @@ __device__ __forceinline__ void sb_step(const SbCfg& c, SbState& st, int t,
   }
 }
 
-// #5: zp (C, ldz) complex, the matched-filter output behind its carried
-// tail; sub-block t's frame starts at zp[c, fs0 + t*S*osf].
-template <int KMAX>
-__global__ void __launch_bounds__(SB_THREADS)
-demod_sb_kernel(const float2* __restrict__ zp, long long ldz,
-                const float* __restrict__ st_in, float* __restrict__ st_out,
-                const float2* __restrict__ sym, SbCfg c, int C, int nsb,
-                int fs0, float2* __restrict__ y, int* __restrict__ sidx,
-                unsigned char* __restrict__ valid) {
-  extern __shared__ float2 s_sym[];
-  for (int i = threadIdx.x; i < c.M; i += blockDim.x) s_sym[i] = sym[i];
-  __syncthreads();
-  const int G = c.G;
-  const int j = threadIdx.x % G;
-  const int ch = blockIdx.x * (blockDim.x / G) + threadIdx.x / G;
-  const bool active = ch < C;
-  const int cc = active ? ch : C - 1;   // idle groups shadow a real channel
-  SbState st = sb_load(st_in, cc, C);
-  const float2* row = zp + (long long)cc * ldz + fs0;
-  const long long ldo = (long long)nsb * c.S;
-  float2* yo = y + (long long)cc * ldo;
-  int* so = sidx + (long long)cc * ldo;
-  unsigned char* vo = valid + (long long)cc * ldo;
-  for (int t = 0; t < nsb; ++t) {
-    const float2* fr = row + (long long)t * c.S * c.osf;
-    sb_step<KMAX>(c, st, t, j, [fr](int u) { return __ldg(fr + u); }, 1.f,
-                  s_sym, yo, so, vo, active);
-  }
-  if (active && j == 0) sb_store(st_out, cc, C, st);
+// Constellation points a kernel holds in shared memory: M rounded up to a
+// whole chunk of the argmin's 16, padded with far points (SB_FAR, SB_FAR),
+// whose distance to any |y| < 1e38 overflows to inf (or is NaN), so that
+// the argmin never takes one.
+__host__ __device__ __forceinline__ int sym_slots(int M) {
+  return (M + 15) / 16 * 16;
 }
 
-// #6's ring layout, one per launch (ops/kernels/demod_sb.py's fused_smem
-// mirrors it): D hops of matched-filter rows span a sub-block's window; the
-// row ring holds RG >= (D + 1) hop rows (a power of 2), the input ring IRG
-// >= 2 hop + kmf + 2 samples (a power of 2) at 6 float2 slots per 4
-// samples, the scale ring SQ >= D + 2 superframe scales (a power of 2).
-struct FusedLayout {
-  int D, RG, IRG, SQ, group_bytes, smem;
+// #5's shared-memory layout (one per launch): the constellation, the tap
+// table (nph + 1 rows of KT floats, where it fits in TAB_MAX bytes, else
+// none: the closed form), then per channel a ring of RS samples (a power of
+// 2 >= hop + W + 2, W = the span of a sub-block's window) into which the
+// window of sub-block t + 1 is staged while sub-block t runs.
+#define SB_TAB_MAX (48 * 1024)
+struct SbLayout {
+  int kt, tab_floats, RS, W, smem;
 };
 
 static int pow2_at_least(int v) {
@@ -325,23 +397,22 @@ static int pow2_at_least(int v) {
   return p;
 }
 
-static FusedLayout fused_layout(int S, int osf, int G, int tb, int sfz,
-                                int kmf, int M) {
-  FusedLayout f;
-  const int hop = S * osf;
-  const int F = sfz - tb * hop + hop;   // rows one sub-block's window reads
-  f.D = (F + hop - 1) / hop;
-  f.RG = pow2_at_least((f.D + 1) * hop);
-  f.IRG = pow2_at_least(2 * hop + kmf + 2);
-  if (f.IRG < 4) f.IRG = 4;
-  f.SQ = pow2_at_least(f.D + 2);
-  if (f.SQ < 4) f.SQ = 4;
-  f.group_bytes = f.RG * 8 + f.IRG / 4 * 6 * 8 + f.SQ * 4;
-  f.smem = (SBF_THREADS / G) * f.group_bytes + (kmf + 3) / 4 * 16 +
-           (M + 1) / 2 * 16;
-  return f;
+static SbLayout sb_layout(const SbCfg& c, int kmax) {
+  SbLayout l;
+  const int hop = c.S * c.osf;
+  l.W = 2 * hop + c.osf + c.osf / 2 + c.K;   // u <= ML + MH + (S-1) osf + h + K - 1
+  l.kt = kmax == 4 ? 4 : c.K;
+  l.tab_floats = (c.nph + 1) * l.kt;
+  if (l.tab_floats * 4 > SB_TAB_MAX) l.tab_floats = 0;
+  l.tab_floats = (l.tab_floats + 3) / 4 * 4;
+  l.RS = pow2_at_least(hop + l.W + 2);
+  l.smem = sym_slots(c.M) * 8 + l.tab_floats * 4 +
+           (SB_THREADS / c.G) * l.RS * 8;
+  return l;
 }
 
+// cp.async copies of 16 (a sample pair) and 8 bytes (one sample) into shared
+// memory; src_bytes < size zero-fills the rest.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            int src_bytes) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
@@ -362,6 +433,114 @@ __device__ __forceinline__ void cp_async_commit() {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// #5: zp (C, ldz) complex, the matched-filter output behind its carried
+// tail; sub-block t's frame starts at zp[c, fs0 + t*S*osf].  A group of G
+// lanes stages the frame's samples into its ring by cp.async one sub-block
+// ahead: sub-block t reads samples [t hop, t hop + W) of the frame, so while
+// it runs, the group copies [hi(t), hi(t + 1)), hi(b) = b hop + W rounded up
+// to a pair boundary, and waits for them when sub-block t + 1 starts.  The
+// copy's addresses are fixed (the frame's start), so the load no longer
+// waits on the previous step's pointer.  Sample g lies in ring slot
+// (g + par) mod RS, par = 1 where the frame's sample 0 is not 16-byte
+// aligned, so that pairs are 16-byte copies on both sides at any ldz, fs0
+// or base; a lone sample at the start is an 8-byte copy, samples past the
+// row are zero-filled (never read).
+template <int KMAX>
+__global__ void __launch_bounds__(SB_THREADS)
+demod_sb_kernel(const float2* __restrict__ zp, long long ldz,
+                const float* __restrict__ st_in, float* __restrict__ st_out,
+                const float2* __restrict__ sym, SbCfg c, SbLayout l, int C,
+                int nsb, int fs0, float2* __restrict__ y,
+                int* __restrict__ sidx, unsigned char* __restrict__ valid) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float2* s_sym = reinterpret_cast<float2*>(smem_raw);
+  float* s_tab = reinterpret_cast<float*>(s_sym + sym_slots(c.M));
+  float2* rings = reinterpret_cast<float2*>(s_tab + l.tab_floats);
+  for (int i = threadIdx.x; i < sym_slots(c.M); i += blockDim.x)
+    s_sym[i] = i < c.M ? sym[i] : make_float2(SB_FAR, SB_FAR);
+  if (l.tab_floats) {
+    for (int q = threadIdx.x; q <= c.nph; q += blockDim.x) {
+      float tp[KMAX];
+      sb_taps<KMAX>(c.itrp, fdiv_cfg((float)q, (float)c.nph, c.inv_nph), c.K,
+                    tp);
+#pragma unroll
+      for (int k = 0; k < KMAX; ++k)
+        if (k < l.kt) s_tab[q * l.kt + k] = tp[k];
+    }
+  }
+  const int G = c.G;
+  const int j = threadIdx.x % G;
+  const int grp = threadIdx.x / G;
+  const int ch = blockIdx.x * (blockDim.x / G) + grp;
+  const bool active = ch < C;
+  const int cc = active ? ch : C - 1;   // idle groups shadow a real channel
+  SbState st = sb_load(st_in, cc, C);
+  const float2* row = zp + (long long)cc * ldz + fs0;
+  const long long ldo = (long long)nsb * c.S;
+  float2* yo = y + (long long)cc * ldo;
+  int* so = sidx + (long long)cc * ldo;
+  unsigned char* vo = valid + (long long)cc * ldo;
+  float2* ring = rings + grp * l.RS;
+  const int mask = l.RS - 1;
+  const int hop = c.S * c.osf;
+  const int par = (int)((reinterpret_cast<size_t>(row) >> 3) & 1);
+  const long long lim = ldz - fs0;      // samples of the row from the frame
+  // the end of batch b: b hop + W rounded up so that g + par is even there
+  auto batch_end = [&](int b) { return ((b * hop + l.W + par + 1) & ~1) - par; };
+  auto stage = [&](int lo, int hi) {
+    if ((lo + par) & 1) {               // a lone first sample
+      if (j == 0) cp_async8(ring + ((lo + par) & mask), row + lo,
+                            lo < lim ? 8 : 0);
+      ++lo;
+    }
+    for (int g = lo + 2 * j; g < hi; g += 2 * G) {
+      const int nb = g + 1 < lim ? 16 : (g < lim ? 8 : 0);
+      cp_async16(ring + ((g + par) & mask), row + (nb ? g : 0), nb);
+    }
+    cp_async_commit();
+  };
+  const TapsTable<KMAX> taps{{c.itrp, c.nph, c.K, c.inv_nph},
+                             l.tab_floats ? s_tab : nullptr, l.kt};
+  stage(0, batch_end(0));
+  __syncthreads();                      // the constellation and the table
+  for (int t = 0; t < nsb; ++t) {
+    cp_async_wait_all();
+    __syncwarp();
+    if (t + 1 < nsb) stage(batch_end(t), batch_end(t + 1));
+    const int base = t * hop + par;
+    sb_step<KMAX>(c, st, t, j,
+                  [ring, base, mask](int u) { return ring[(base + u) & mask]; },
+                  taps, 1.f, s_sym, yo, so, vo, active);
+  }
+  if (active && j == 0) sb_store(st_out, cc, C, st);
+}
+
+// #6's ring layout, one per launch (ops/kernels/demod_sb.py's fused_smem
+// mirrors it): D hops of matched-filter rows span a sub-block's window; the
+// row ring holds RG >= (D + 1) hop rows (a power of 2), the input ring IRG
+// >= 2 hop + kmf + 2 samples (a power of 2) at 6 float2 slots per 4
+// samples, the scale ring SQ >= D + 2 superframe scales (a power of 2).
+struct FusedLayout {
+  int D, RG, IRG, SQ, group_bytes, smem;
+};
+
+static FusedLayout fused_layout(int S, int osf, int G, int tb, int sfz,
+                                int kmf, int M) {
+  FusedLayout f;
+  const int hop = S * osf;
+  const int F = sfz - tb * hop + hop;   // rows one sub-block's window reads
+  f.D = (F + hop - 1) / hop;
+  f.RG = pow2_at_least((f.D + 1) * hop);
+  f.IRG = pow2_at_least(2 * hop + kmf + 2);
+  if (f.IRG < 4) f.IRG = 4;
+  f.SQ = pow2_at_least(f.D + 2);
+  if (f.SQ < 4) f.SQ = 4;
+  f.group_bytes = f.RG * 8 + f.IRG / 4 * 6 * 8 + f.SQ * 4;
+  f.smem = (SBF_THREADS / G) * f.group_bytes + (kmf + 3) / 4 * 16 +
+           sym_slots(M) * 8;
+  return f;
 }
 
 // Input ring slot of sample x_g: g mod IRG, 4 samples to 6 slots (2-way
@@ -416,7 +595,8 @@ demod_sb_fused_kernel(const float2* __restrict__ x,
   const int bar_count = G > 1 ? 96 : 64; // a producer warp + its consumers
   float* s_h = reinterpret_cast<float*>(smem_raw + ngrp * f.group_bytes);
   float2* s_sym = reinterpret_cast<float2*>(s_h + (kmf + 3) / 4 * 4);
-  for (int i = threadIdx.x; i < c.M; i += blockDim.x) s_sym[i] = sym[i];
+  for (int i = threadIdx.x; i < sym_slots(c.M); i += blockDim.x)
+    s_sym[i] = i < c.M ? sym[i] : make_float2(SB_FAR, SB_FAR);
   for (int i = threadIdx.x; i < kmf; i += blockDim.x) s_h[i] = h_mf[i];
   __syncthreads();
 
@@ -443,13 +623,14 @@ demod_sb_fused_kernel(const float2* __restrict__ x,
     unsigned char* vo = valid + (long long)cc * ldo;
     const int mask = f.RG - 1;
     float s = 1.f;
+    const TapsClosed<KMAX> taps{c.itrp, c.nph, c.K, c.inv_nph};
     named_bar(bar_id, bar_count);      // hops 0 .. D-1 are in the ring
     for (int t = 0; t < nsb; ++t) {
       if (t % tb == 0) s = s_sc[(t / tb) & (f.SQ - 1)];
       const int base = t * hop;
       sb_step<KMAX>(c, st, t, j,
                     [ring, base, mask](int u) { return ring[(base + u) & mask]; },
-                    s, s_sym, yo, so, vo, active);
+                    taps, s, s_sym, yo, so, vo, active);
       named_bar(bar_id, bar_count);
     }
     if (active && j == 0) sb_store(st_out, cc, C, st);
@@ -573,6 +754,8 @@ static SbCfg make_cfg(int S, int osf, int K, int nph, int itrp, int M, int n,
   c.G = 1;
   while (c.G < S) c.G <<= 1;
   c.tgain = tgain; c.aga = aga; c.gamma = gamma; c.rho = rho;
+  c.inv_S = (S & (S - 1)) == 0 ? 1.f / (float)S : 0.f;
+  c.inv_nph = nph > 0 && (nph & (nph - 1)) == 0 ? 1.f / (float)nph : 0.f;
   return c;
 }
 
@@ -585,18 +768,24 @@ extern "C" int demod_sb_f32(const float2* zp, long long ldz,
                             int flags, int kmax, cudaStream_t stream) {
   const SbCfg c = make_cfg(S, osf, K, nph, itrp, M, n, tgain, aga, gamma,
                            rho, flags);
+  const SbLayout l = sb_layout(c, kmax);
   const int cpb = SB_THREADS / c.G;
   const unsigned blocks = (unsigned)((C + cpb - 1) / cpb);
-  const size_t smem = (size_t)M * sizeof(float2);
+#define SB_LAUNCH(KM)                                                        \
+  do {                                                                       \
+    cudaFuncSetAttribute(demod_sb_kernel<KM>,                                \
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,        \
+                         l.smem);                                            \
+    demod_sb_kernel<KM><<<blocks, SB_THREADS, l.smem, stream>>>(             \
+        zp, ldz, st_in, st_out, sym, c, l, C, nsb, fs0, y, sidx, valid);     \
+  } while (0)
   if (kmax == 4)
-    demod_sb_kernel<4><<<blocks, SB_THREADS, smem, stream>>>(
-        zp, ldz, st_in, st_out, sym, c, C, nsb, fs0, y, sidx, valid);
+    SB_LAUNCH(4);
   else if (kmax == 16)
-    demod_sb_kernel<16><<<blocks, SB_THREADS, smem, stream>>>(
-        zp, ldz, st_in, st_out, sym, c, C, nsb, fs0, y, sidx, valid);
+    SB_LAUNCH(16);
   else
-    demod_sb_kernel<32><<<blocks, SB_THREADS, smem, stream>>>(
-        zp, ldz, st_in, st_out, sym, c, C, nsb, fs0, y, sidx, valid);
+    SB_LAUNCH(32);
+#undef SB_LAUNCH
   return (int)cudaGetLastError();
 }
 

@@ -411,7 +411,8 @@ def fused_smem(p: LoopParams, lay: dict, kmf: int, M: int) -> dict:
     sub-block's window spans D hops of matched-filter rows; per channel a
     ring of RG >= (D + 1) hop rows, an input ring of IRG >= 2 hop + kmf + 2
     samples (6 float2 slots per 4 samples) and SQ >= D + 2 superframe
-    scales (powers of 2), then the taps and the constellation."""
+    scales (powers of 2), then the taps and the constellation (padded to
+    whole 16-point chunks, the argmin's)."""
     hop = p.S * p.osf
     G = _pow2(p.S)
     F = lay["SFZ"] - lay["hopt"] + hop
@@ -422,7 +423,7 @@ def fused_smem(p: LoopParams, lay: dict, kmf: int, M: int) -> dict:
     group = RG * 8 + IRG // 4 * 48 + SQ * 4
     return dict(D=D, RG=RG, IRG=IRG, SQ=SQ, group_bytes=group,
                 smem=(_SBF_THREADS // G) * group + (kmf + 3) // 4 * 16
-                + (M + 1) // 2 * 16)
+                + (M + 15) // 16 * 128)
 
 
 def _kmax(K: int) -> int:

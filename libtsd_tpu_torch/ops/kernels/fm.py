@@ -33,7 +33,7 @@ from ..filter_rt import _first_order_scan
 from . import _build
 
 __all__ = ["fir_decim_toeplitz_mats", "FmChain", "fm_chain",
-           "fm_chain_plain"]
+           "fm_chain_plain", "fm_fir_plain"]
 
 _L = 128
 _Q = 1024          # outputs per block of the kernel
@@ -124,10 +124,12 @@ def _check(xr, xi, h, R: int, tb: int):
     return C, N
 
 
-def fm_chain_plain(xr, xi, h, *, R: int, f0: float, dev: float, b0: float,
-                   c: float, p: float, tb: int = 32) -> torch.Tensor:
-    """Plain PyTorch version of :func:`fm_chain`."""
-    C, N = _check(xr, xi, h, R, tb)
+def fm_fir_plain(xr, xi, h, *, R: int, f0: float
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The chain's first half, plain: the mix (phase in float64 cycles) and
+    the FIR decimated by R, z[q] = sum_k h[k] b[R q - k] with the taps in
+    ascending order.  Returns (zr, zi), each (C, N // R)."""
+    C, N = xr.shape
     K = h.shape[0]
     n = torch.arange(N, dtype=torch.float64, device=xr.device)
     ph = torch.remainder(f0 * n, 1.0)
@@ -145,6 +147,14 @@ def fm_chain_plain(xr, xi, h, *, R: int, f0: float, dev: float, b0: float,
     for k in range(K):       # z[q] += h[k] b[R q - k], taps ascending
         zr = zr + hs[k] * bpr[:, K - 1 - k::R][:, :nout]
         zi = zi + hs[k] * bpi[:, K - 1 - k::R][:, :nout]
+    return zr, zi
+
+
+def fm_chain_plain(xr, xi, h, *, R: int, f0: float, dev: float, b0: float,
+                   c: float, p: float, tb: int = 32) -> torch.Tensor:
+    """Plain PyTorch version of :func:`fm_chain`."""
+    _check(xr, xi, h, R, tb)
+    zr, zi = fm_fir_plain(xr, xi, h, R=R, f0=f0)
     pr = torch.nn.functional.pad(zr[:, :-1], (1, 0))
     pi = torch.nn.functional.pad(zi[:, :-1], (1, 0))
     pin = -pi

@@ -247,6 +247,45 @@ def test_demod_sb_kernel(dev, M, C, S, itrp):
         st = dd.step(st, xb)[0]
 
 
+# #5 against its plain version bit for bit: the window staged into a ring
+# by cp.async at either parity of a row's start (an odd row length and a
+# base 8 bytes past a 16-byte line; an n that leaves a remainder), and the
+# tap table of the windowed sinc (K 15, the 16-tap instance).
+@pytest.mark.parametrize("M,C,S,itrp,n,odd", [(16, 77, 16, "cspline", 2048,
+                                               False),
+                                              (4, 33, 16, "cspline", 2085,
+                                               True),
+                                              (4, 20, 8, "sinc", 1024, True)])
+def test_demod_sb_kernel_bit_identical(dev, M, C, S, itrp, n, odd):
+    from libtsd_tpu_torch.models.demod_sb import (DecisionDemodSB,
+                                                  SBDemodConfig, pack_state)
+    from libtsd_tpu_torch.ops.kernels import demod_sb as KSB
+    wf, _, x = _qam(dev, M, C, 2 * n // 4 + 64, 5 * S + C)
+    dd = DecisionDemodSB.create(wf, SBDemodConfig(osf=4, S=S, itrp=itrp,
+                                                  engine="cuda"), device=dev)
+    st = dd.init_for(x)
+    for blk in range(2):
+        xb = x[:, blk * n:(blk + 1) * n]
+        _, zp = dd.matched_zp(st, xb)
+        if odd:       # odd row length, base 8 bytes past a 16-byte line
+            L = zp.shape[1] + 1 - zp.shape[1] % 2
+            buf = torch.zeros(C * L + 1, dtype=zp.dtype, device=dev)
+            zp2 = buf[1:].view(C, L)
+            zp2[:, :zp.shape[1]] = zp
+            zp = zp2
+            assert zp.data_ptr() % 16 == 8 and zp.is_contiguous()
+        p = dd.loop_params(xb.shape[-1])
+        s8 = pack_state(st)
+        before = KSB.demod_sb.launches
+        k = KSB.demod_sb(zp, s8, wf.symbols, p)
+        assert KSB.demod_sb.launches == before + 1
+        ref = KSB.demod_sb_plain(zp, s8, wf.symbols, p)
+        torch.cuda.synchronize()
+        for u, v in zip(k, ref):
+            assert torch.equal(u, v)
+        st = dd.step(st, xb)[0]
+
+
 @pytest.mark.parametrize("M,C", [(4, 200), (16, 77)])
 def test_demod_sb_fused_kernel(dev, M, C):
     """#6 against its plain version on two consecutive blocks (carried
@@ -615,6 +654,30 @@ def test_fm_chain_kernel(dev, f0, deemph, C, N):
     assert yk.shape == (C, N // 4)
     # random input: |z| near 0 makes a few discriminator outputs fragile,
     # so hold the bulk to 1e-5 and every output to the de-emphasised jump
+    d = (yk - yp).abs()
+    assert torch.quantile(d.flatten().cpu(), 0.999).item() < 1e-5
+
+
+# #8's run-time instance (any R, any taps, planes off a 16-byte line)
+# against its plain version: R 3, R 4 with 40 taps, R 4 with 63 taps on
+# misaligned planes, R 5; the gates of test_fm_chain_kernel.
+@pytest.mark.parametrize("R,K,shift", [(3, 63, 0), (4, 40, 0), (4, 63, 1),
+                                       (5, 63, 0)])
+def test_fm_chain_kernel_generic_instance(dev, R, K, shift):
+    from libtsd_tpu_torch.ops.kernels import fm
+    chain_ = fm.FmChain(0.23, R, K, 0.1, 0.05, device=dev)
+    C, N = 3, R * 4096 * 2 + R * 128 * 8
+    g = torch.Generator(device=dev).manual_seed(R + K)
+    buf = torch.randn(2, C * N + shift, generator=g, device=dev)
+    xr, xi = (b[shift:].view(C, N) for b in buf)
+    assert xr.is_contiguous() and (xr.data_ptr() % 16 == 0) == (shift == 0)
+    before = fm.fm_chain.launches
+    yk = chain_(xr, xi, tb=8)
+    assert fm.fm_chain.launches == before + 1
+    yp = fm.fm_chain_plain(xr, xi, chain_.h, R=R, f0=0.23, dev=0.1,
+                           b0=chain_.b0, c=chain_.c, p=chain_.p, tb=8)
+    torch.cuda.synchronize()
+    assert yk.shape == (C, N // R)
     d = (yk - yp).abs()
     assert torch.quantile(d.flatten().cpu(), 0.999).item() < 1e-5
 
