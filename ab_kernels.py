@@ -1,6 +1,5 @@
 #!/usr/bin/env python3
-"""Time kernels #2-#8 and #11 of other trees of the port against this
-tree's.
+"""Time kernels #2-#11 of other trees of the port against this tree's.
 
     python3 ab_kernels.py [--stages] [--only GROUPS] DIR [DIR ...]
 
@@ -20,16 +19,21 @@ them as bfloat16; int8 on int8 samples), #11 on the int16 samples cut
 into 2 rows of 4 time shards (8 virtual shards of the card, int16/2; each
 row's launches in time order, one call the 8 launches), #2 on a random
 256 x 2^22 float32 input and on its first channel, #4 on 8188 x 4096
-planes (the main path's Welch call).  --only takes a comma list of the
-groups "sb" (#5, #6), "iir" (#7), "fm" (#8), "chain" (#3, #11) and
-"fft" (#2, #4);
-all by default.  Each pair is timed other, this, this, other with
-``chip_smoke.time_ms``; #2-#4 and #11 are held to this tree's plain
-version (1e-4 of the peak; the spectra also 1e-3 per bin).  --stages also
-builds this tree's kernels with -DCHAIN_FIR_ONLY (the fused chain without
-its FFT stage, into build/fir_only/) and times #3 whole and FIR-only in
-turns at every tier: the split of the fused call between its
-window-and-FIR and its FFT stages.  Needs one CUDA card; prints the
+planes (the main path's Welch call), #9 and #10 at the frame receiver's
+shapes through each tree's own wrapper (#9 on 64 x 130,944 complex
+samples, 33 windows of Nf 4096 at 128 complex taps, and at Nf 8192 and
+16384 on 16 and 8 windows; #10 on 64 x 131,072 at M = 128; each held to
+this tree's plain version: #9 1e-5 of the peak, #10's planes 1e-5 of
+their peak and its score 1e-4 absolute).  --only takes a comma list of
+the groups "sb" (#5, #6), "iir" (#7), "fm" (#8), "chain" (#3, #11),
+"fft" (#2, #4) and "frame" (#9, #10); all by default.  Each pair is
+timed other, this, this, other with ``chip_smoke.time_ms``; #2-#4 and #11
+are held to this tree's plain version (1e-4 of the peak; the spectra also
+1e-3 per bin).  --stages also builds this tree's kernels with
+-DCHAIN_FIR_ONLY (the fused chain without its FFT stage, into
+build/fir_only/) and times #3 whole and FIR-only in turns at every tier:
+the split of the fused call between its window-and-FIR and its FFT
+stages.  Needs one CUDA card; prints the
 card's name and power limit first.
 """
 from __future__ import annotations
@@ -45,8 +49,9 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 NFFT = 4096
-GROUPS = ("fft", "chain", "sb", "iir", "fm")   # --only: kernels #2/#4,
-                                                # #3/#11, #5/#6, #7, #8
+GROUPS = ("fft", "chain", "sb", "iir", "fm",    # --only: kernels #2/#4,
+          "frame")                               # #3/#11, #5/#6, #7, #8,
+                                                 # #9/#10
 
 
 def _first_port_taps(G, precision, passes):
@@ -253,12 +258,13 @@ def stages(x: torch.Tensor, G: torch.Tensor, dev: torch.device) -> dict:
 
 def ab_tree(other: str, y: torch.Tensor, x: torch.Tensor, G: torch.Tensor,
             dev: torch.device, only=GROUPS, inp=None) -> dict:
-    """#2, #4, #3 and #11 of the tree at ``other`` against this tree's, in
-    turns.  The other tree's C entry points are called as its own
+    """The groups in ``only`` of the tree at ``other`` against this tree's,
+    in turns.  The other tree's C entry points are called as its own
     ``SIGNATURES`` say: #2 and #4 without a twiddle table (#2: y, out, C,
     N, frames per block, stream; #4: xr, xi, yr, yi, B, log2 n, inverse,
     stream), or with one after the output pointers, as this tree's, which
-    then gets this tree's table; #3 and #11 as ``chain_callers`` says."""
+    then gets this tree's table; #3 and #11 as ``chain_callers`` says;
+    #5-#10 through the other tree's own wrappers (``other_wrapper``)."""
     import chip_smoke as cs
     from libtsd_tpu_torch.ops.kernels import _build, fft, periodogram
     ob, olib = load_build(os.path.join(other, "libtsd_tpu_torch", "ops",
@@ -290,6 +296,8 @@ def ab_tree(other: str, y: torch.Tensor, x: torch.Tensor, G: torch.Tensor,
         res.update(ab_sb_iir(ob, other, inp, only))
     if "fm" in only:
         res.update(ab_fm(ob, other, inp))
+    if "frame" in only:
+        res.update(ab_frame(ob, other, inp))
     if "chain" in only:
         res.update(ab_chain(ob, olib, other, x, G, dev))
     if "fft" not in only:
@@ -453,6 +461,77 @@ def ab_fm(ob, other: str, inp: dict) -> dict:
     return {name: turns(name, other, oth, this)}
 
 
+def frame_inputs(dev: torch.device) -> dict:
+    """#9's and #10's arguments at the frame receiver's shapes (random
+    complex samples, seeded): #9 at Nf 4096 (33 windows of Ne 3968, the
+    "cuda" engine's block), 8192 and 16384 (16 and 8 windows), 64
+    channels, 128 complex taps, a random state; #10 on 64 x 131,072 (the
+    "cuda-fused" engine's block) with 128 unit-norm complex taps after a
+    random state."""
+    import chip_smoke as cs
+    from libtsd_tpu_torch.ops.kernels import detfront as DF, ola
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rng = np.random.default_rng(5)
+
+    def cplx(*shape):
+        return torch.complex(torch.randn(shape, generator=gen, device=dev),
+                             torch.randn(shape, generator=gen, device=dev))
+
+    K = 128
+    h = rng.standard_normal(K) + 1j * rng.standard_normal(K)
+    h /= np.linalg.norm(h)
+    out = {"ola": {}}
+    for nf, hops in ((4096, 33), (8192, 16), (16384, 8)):
+        Nf, Ne, V = ola.ola_plan(K, nf)
+        out["ola"][Nf] = (cplx(cs.C_FRM, hops * Ne), cplx(cs.C_FRM, V),
+                          ola.freq_response(h, Nf, dev), K, Nf)
+    fr = DF.DetFront.create(h, device=dev)
+    out["detfront"] = (cplx(cs.C_FRM, cs.N_FRM["cuda-fused"]),
+                       cplx(cs.C_FRM, fr.V), fr.taps, fr.M)
+    return out
+
+
+def ab_frame(ob, other: str, inp: dict) -> dict:
+    """#9 (Nf 4096, 8192, 16384) and #10 of the other tree against this
+    tree's, in turns, through each tree's own wrapper; each tree's results
+    held to this tree's plain version (#9 1e-5 of the peak; #10's planes
+    1e-5 of their peak, its score 1e-4 absolute)."""
+    import chip_smoke as cs
+    from libtsd_tpu_torch.ops.kernels import detfront as DF, ola
+    ola_o, df_o = (other_wrapper(ob, other, "ola"),
+                   other_wrapper(ob, other, "detfront"))
+    res = {}
+    for Nf, args in inp["ola"].items():
+        name = f"ola {cs.C_FRM}x{args[0].shape[1]} Nf {Nf}"
+        ref = torch.view_as_real(ola.ola_stream_plain(*args)[0])
+        oth = lambda a=args: ola_o.ola_stream(*a)[0]          # noqa: E731
+        this = lambda a=args: ola.ola_stream(*a)[0]           # noqa: E731
+        for who, fn in (("other tree", oth), ("this tree", this)):
+            cs.check(f"ab {name} {who} vs plain", torch.view_as_real(fn()),
+                     ref, cs.TOL_OLA)
+        del ref
+        res[name] = turns(name, other, oth, this)
+    args = inp["detfront"]
+    name = f"detfront {cs.C_FRM}x{args[0].shape[1]} M {args[3]}"
+    ref = DF.detfront_plain(*args)
+    oth = lambda: df_o.detfront(*args)                        # noqa: E731
+    this = lambda: DF.detfront(*args)                         # noqa: E731
+    for who, fn in (("other tree", oth), ("this tree", this)):
+        got = fn()
+        for plane, a, b in zip(("cr", "ci", "en"), got, ref):
+            cs.check(f"ab {name} {who} {plane} vs plain", a, b, cs.TOL_PLANE)
+        d = (got[3] - ref[3]).abs().max().item()
+        ok = d < cs.TOL_SCORE
+        print(f"check ab {name} {who} score vs plain: max_abs_err={d:.3e} "
+              f"tol {cs.TOL_SCORE:g} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            FAILED.append(f"{other}: {name}: {who} score")
+        del got
+    del ref
+    res[name] = turns(name, other, oth, this)
+    return res
+
+
 def main() -> int:
     argv = sys.argv[1:]
     only = set(GROUPS)
@@ -486,6 +565,8 @@ def main() -> int:
     inp = sb_iir_inputs(dev) if only & {"sb", "iir"} else {}
     if "fm" in only:
         inp.update(fm_inputs(dev))
+    if "frame" in only:
+        inp.update(frame_inputs(dev))
     for d in args:
         ab_tree(d, y, x, G, dev, only, inp)
     if "--stages" in argv:

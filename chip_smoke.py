@@ -274,6 +274,17 @@ def time_ms(fn, reps: int = 5, min_ms: float = 2.0) -> float:
     return float(np.median([run(inner) for _ in range(reps)]))
 
 
+def registers(pattern: str) -> str:
+    """The registers and spill stores ``nvcc -Xptxas -v`` reported for the
+    kernels whose mangled names contain ``pattern`` (the build's log)."""
+    from libtsd_tpu_torch.ops.kernels import _build
+    found = [v for k, v in _build.ptxas_registers().items() if pattern in k]
+    if not found:
+        return f"registers of {pattern}: not recorded"
+    return "; ".join(f"{pattern}: {r} registers, {sp} bytes of spill stores"
+                     " (ptxas -v)" for r, sp in found)
+
+
 def device_info() -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1035,9 +1046,10 @@ def frame_serving(sig, rxs, found_ch0, tmp: str) -> None:
 def frame_timings(sig, rxs, fp):
     """One Receiver.step at C_FRM on each engine, each kernel alone and its
     plain version on block 0 (CUDA events, median of 5 after a warm-up),
-    and each kernel's bound.  #9: 16 bytes a sample (x in, y out) plus the
-    state and H; per window two Nf-point FFTs (5 Nf log2 Nf each) and the
-    product (6 Nf).  #10: 8 bytes a sample in and 16 out (four planes)
+    each kernel's bound, its share of the bound and its registers (the
+    build's ``-Xptxas -v`` report).  #9: 16 bytes a sample (x in, y out)
+    plus the state and H; per window two Nf-point FFTs (5 Nf log2 Nf each)
+    and the product (6 Nf).  #10: 8 bytes a sample in and 16 out (four planes)
     plus the state and taps; its least work computes the correlation as #9
     does, by overlap-save at the detector's own plan (Nf, Ne of ola_plan(M)),
     and the window energy as a running sum: (10 Nf log2 Nf + 6 Nf) / Ne
@@ -1075,7 +1087,9 @@ def frame_timings(sig, rxs, fp):
                     nwin * (2 * fft_flops(corr.Nf) + 6 * corr.Nf))
     out["ola"] = (ms_k, ms_p, bms, by, None)
     print(f"time frame ola (#9): kernel {ms_k:.4f} ms, plain (cuFFT route) "
-          f"{ms_p:.4f} ms, bound {bms:.4f} ms by {by}; library call none")
+          f"{ms_p:.4f} ms, bound {bms:.4f} ms by {by} ({100 * bms / ms_k:.1f}"
+          f" % of the bound); library call none; "
+          f"{registers(f'ola_kernelILi{corr.Nf.bit_length() - 1}E')}")
     r = fp["cuda-fused"]
     n, fr = r["n"], r["rx"].det.corr
     xb, st = x[:, :n].contiguous(), r["states"][0]["det"]["corr"]
@@ -1086,7 +1100,9 @@ def frame_timings(sig, rxs, fp):
                     C_FRM * n * ((2 * fft_flops(nf) + 6 * nf) / ne + 11))
     out["detfront"] = (ms_k, ms_p, bms, by, None)
     print(f"time frame detfront (#10): kernel {ms_k:.4f} ms, plain "
-          f"{ms_p:.4f} ms, bound {bms:.4f} ms by {by}; library call none")
+          f"{ms_p:.4f} ms, bound {bms:.4f} ms by {by} ({100 * bms / ms_k:.1f}"
+          f" % of the bound); library call none; "
+          f"{registers('detfront_kernel')}")
     return out, steps
 
 

@@ -7,9 +7,9 @@
 // point at n = 4096) against 16 bytes of traffic per point (two f32 planes
 // in, two out): 3.75 flop/byte, far below the fp32 ridge of 20, so the
 // kernel is bound by device memory, if on-chip traffic keeps up: the
-// shared-memory FFT of fft_smem.cuh sweeps every point through shared
+// first port's shared-memory FFT swept every point through shared
 // memory five times, with 16-way bank conflicts in its second pass's
-// twiddle reads, and a natural-order store after it gathers 16-way
+// twiddle reads, and a natural-order store after it gathered 16-way
 // conflicted too, which left it at a quarter of the bound.
 //
 // Design: the register-resident core of fft_reg.cuh.  Each thread loads

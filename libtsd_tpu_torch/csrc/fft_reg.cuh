@@ -1,11 +1,12 @@
 // A register-resident forward complex float32 FFT of n = 2^L points
 // (8 <= L <= 14), templated on L so that every index map is a constant at
-// compile time.  Kernels #2 (periodogram.cu), #4 (fft.cu) and the fused
-// chain #3/#11 (chain_body.cuh) run on it; #9 and #10 share fft_smem.cuh.
+// compile time.  Kernels #2 (periodogram.cu), #4 (fft.cu), the fused
+// chain #3/#11 (chain_body.cuh) and the overlap-save filter #9 (ola.cu)
+// run on it.
 //
-// Passes: decimation in frequency, as fft_smem.cuh, but each thread keeps
-// the 16 values of one column in registers through a pass, and the data
-// crosses shared memory only between passes.  The first pass has radix
+// Passes: decimation in frequency, each thread keeping the 16 values of
+// one column in registers through a pass, and the data crosses shared
+// memory only between passes.  The first pass has radix
 // R0 = 2^(L % 4) when L % 4 != 0, else 16; then radix-16 passes over
 // sub-transforms of size M = n/R0 (or n/16), ..., 256 ("middle"), and a
 // last radix-16 pass over M = 16.  4096 = 16 x 16 x 16 is three passes and
@@ -23,8 +24,8 @@
 //   last   thread u takes column col(u) = fft_pos(u) / 16, positions
 //          16 col + r; after its DFT, register k holds bin u + U k, so
 //          neighbouring threads store neighbouring bins (coalesced), with
-//          no gather.  fft_pos / fft_bin: the mixed-radix digit reversal of
-//          fft_smem.cuh (the remainder digit first).
+//          no gather.  fft_pos / fft_bin: the mixed-radix digit reversal
+//          of the passes (the remainder digit first).
 // Layout of an exchange: position p lives at float2 slot swz(p) = p XOR
 // (fft_bin(p) & 15), the low nibble of the bin it will hold.  The writers
 // and readers of every pass vary the low nibble of p across a half-warp,

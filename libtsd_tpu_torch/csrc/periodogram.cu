@@ -9,9 +9,9 @@
 // in one complex transform: 7.5 flop/byte, under the fp32 ridge of 20, so
 // the kernel is bound by device memory (1.28 ms at 256 x 2^22), if on-chip
 // work keeps up: a real frame transformed as a complex one spends half of
-// the arithmetic and of the shared-memory traffic on zeros, and
-// fft_smem.cuh's five conflicted sweeps held such a kernel at a sixth of
-// the bound.
+// the arithmetic and of the shared-memory traffic on zeros, and the
+// first port's shared-memory FFT (five conflicted sweeps) held such a
+// kernel at a sixth of the bound.
 //
 // Design: two real frames a, b of one channel per complex transform z = a +
 // i b on the register-resident core of fft_reg.cuh (loads straight into

@@ -48,7 +48,7 @@ class DetectorConfig:
     Ne: int = 0                  # OLA input block (0 = auto)
     mode: str = "ola"            # "ola" (FFT) | "rif" (direct FIR)
     engine: str = "torch"        # "torch" | "cuda" (#9) | "cuda-fused" (#10)
-    precision: str = "highest"   # the JAX kernels' tiers; fp32 in the port
+    precision: str = "highest"   # the JAX kernels' tiers; see DetFront, OlaFft
 
 
 @dataclasses.dataclass
@@ -127,7 +127,7 @@ class Detector(Block):
                 msg_warn(
                     f"DetectorConfig(engine='cuda-fused'): precision "
                     f"{cfg.precision!r} is not a tier of the fused kernel "
-                    f"-- it runs fp32 whatever the tier")
+                    f"-- it runs the 'split' tier whatever the tier")
             corr = DetFront.create(taps, device=device)
         else:
             corr = OlaFft.create(taps, Ne=cfg.Ne if cfg.Ne else None,

@@ -7,6 +7,9 @@ interface, loaded with ``ctypes``.  The library lives under
 lists ``build/``); its file name carries a hash of the sources and flags,
 so an edit rebuilds.  It is built at first use, never at import.
 
+Each kernel's registers and spills, as ``nvcc -Xptxas -v`` reports them,
+are kept in a log beside the library (:func:`ptxas_registers`).
+
 A missing ``nvcc`` or a failed build raises: there is no fallback.  Every C
 entry point returns ``cudaGetLastError()`` after its launch, and
 :func:`check` raises if that is not 0.  Pointers and the stream are passed
@@ -17,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -49,8 +53,8 @@ SIGNATURES = {
     "demod_sb_fused_f32": [P, P, I, P, I, P, P, P, I, P, P, P, I, I, I, I, I,
                            I, I, I, I, I, F32, F32, F32, F32, F32, I, I, I,
                            P],
-    "ola_f32": [P, P, P, P, I, I64, I, I, P],
-    "detfront_f32": [P, P, P, P, P, P, P, I, I, I, I, I, P],
+    "ola_f32": [P, P, P, P, P, I, I64, I, I, P],
+    "detfront_f32": [P, P, P, P, P, P, P, I, I, I, I, P],
     "iir_cascade_f32": [P, P, P, P, P, P, P, P, I, I64, I, P, U32, P],
     "fm_chain_f32": [P, P, P, P, P, I, I64, I, I, F64, F32, F32, F32, F32, P],
     "fir_periodogram4096_halo": [P, P, P, P, P, P, P, P, P, I, I, I64, I, I,
@@ -87,6 +91,11 @@ def library_path() -> Path:
     return BUILD_DIR / f"libtsd_kernels_{_digest()}.so"
 
 
+def log_path() -> Path:
+    """The compiler's report (``-Xptxas -v``) of the library's build."""
+    return library_path().with_suffix(".log")
+
+
 def _run(cmds: list) -> str:
     """Run the commands all at once; raise on the first that fails.
     Returns their joined output."""
@@ -119,16 +128,38 @@ def build(verbose: bool = False) -> Path:
     objs = [BUILD_DIR / f"{tag}.{s.stem}.o" for s in srcs]
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     try:
-        log = _run([[nvcc, *compile_flags, *(["-Xptxas", "-v"] if verbose
-                                              else []), "-c", "-o", str(o),
-                     str(s)] for s, o in zip(srcs, objs)])
+        log = _run([[nvcc, *compile_flags, "-Xptxas", "-v", "-c", "-o",
+                     str(o), str(s)] for s, o in zip(srcs, objs)])
         log += _run([[nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, objs)]])
+        logtmp = log_path().with_name(f"{log_path().name}.{os.getpid()}")
+        logtmp.write_text(log)
+        os.replace(logtmp, log_path())
         os.replace(tmp, out)   # atomic: concurrent builders never see a partial
     finally:
         for f in (*objs, tmp):
             f.unlink(missing_ok=True)
     if verbose:
         print(log)
+    return out
+
+
+def ptxas_registers() -> dict:
+    """{mangled kernel name: (registers, spill store bytes)} from the build
+    log of the current sources (empty if the library was built without
+    one)."""
+    if not log_path().exists():
+        return {}
+    out, name, spill = {}, None, 0
+    for line in log_path().read_text().splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name, spill = m.group(1), 0
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            out[name] = (int(m.group(1)), spill)
     return out
 
 

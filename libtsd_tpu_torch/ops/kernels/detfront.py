@@ -4,15 +4,20 @@ Replaces ``libtsd_tpu/ops/pallas/detfront.py::_detfront_jit`` (reached
 through ``DetFront.step``).  In one pass over complex x it computes the
 complex pattern correlation c[t] = sum_k h[k] x[t-k], the window energy
 en[t] = sum_{k<M} |x[t-k]|^2 and the raw score sqrt(|c|^2 / (en + 1e-20)),
-as four fp32 planes.  What bounds it on the H100 and what its design does
-about it is set out at the top of ``csrc/detfront.cu``: its direct form
-does ~10 M flop a sample against 24 bytes, so FMA issue bounds it (the
-function's least work is bound by the bytes), and the MACs are
-register-blocked as the FIR kernel's are.
+as four fp32 planes.
 
-The JAX kernel's tiers ("split": bf16 hi/lo, ~1e-5; "bf16": ~2.5e-3) were
-MXU choices; this kernel and its plain version compute in fp32 whatever the
-tier, so the port is at least as close to fp32 as the JAX "split" tier.
+What bounds it on the H100 and what its design does about it is set out
+at the top of ``csrc/detfront.cu``: the direct form does ~5 M FMAs a
+sample against 24 bytes, which on the FP32 pipes bound the kernel (the
+function's least work is bound by the bytes), so the kernel runs the
+direct form on the tensor cores as banded Toeplitz products of bf16
+pieces, the energy as one more product with an all-ones Toeplitz.
+
+Precision: the JAX kernel's default tier, "split" (every real product x h
+as x1 h1 + x2 h1 + x1 h2 of bf16 pieces, summed in fp32, ~2^-18 relative a
+product); its "bf16" tier (~2.5e-3) has no counterpart.  The plain version
+computes in fp32, and the kernel is held to 1e-5 of its peak.  An exactly
+silent window gives exactly 0 in every plane.
 
 A wrapper given CPU tensors runs the plain version (:func:`detfront_plain`:
 real/imag ``F.conv1d`` groups and a ones-kernel ``conv1d`` on |x|^2, fp32,
@@ -33,8 +38,8 @@ from . import _build
 __all__ = ["detfront_plan", "DetFront", "detfront", "detfront_plain"]
 
 _L = 128           # block-length quantum and context-row width (the JAX API)
-TILE = 2048        # outputs per block (DF_TILE)
-_TAP_QUANTUM = 128  # taps zero-padded to a multiple (DF_TAP_QUANTUM)
+TILE = 4096        # outputs per block (DF_TILE)
+_TAP_QUANTUM = 128  # the taps buffer's padding (the kernel reads the first M)
 
 
 def detfront_plan(n: int) -> tuple[int, int]:
@@ -123,7 +128,7 @@ def detfront(x: torch.Tensor, state: torch.Tensor, taps: torch.Tensor,
         _build.require_cuda(x, state, taps, *out)
         err = _build.lib().detfront_f32(
             _build.ptr(x), _build.ptr(state), _build.ptr(taps),
-            *map(_build.ptr, out), C, n, M, taps.shape[0], state.shape[1],
+            *map(_build.ptr, out), C, n, M, state.shape[1],
             _build.stream_ptr(x.device))
         _build.check(err, "detfront_f32")
         detfront.launches += 1
@@ -139,7 +144,8 @@ class DetFront(Block):
     (D - 1) 128 >= M - 1), drop-in for the detector's (corr, energy) pair.
     ``step(state, x)`` takes x (n,) or (C, n) with n % 128 == 0 and
     returns (new_state, (cr, ci, en, score_raw)), real planes shaped like
-    x.  It has no precision tiers: it computes in fp32."""
+    x.  It has no precision tiers: the kernel computes the JAX "split"
+    tier, its plain version fp32."""
 
     def __init__(self, taps: torch.Tensor, M: int, D: int):
         super().__init__()

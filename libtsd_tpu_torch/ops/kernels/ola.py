@@ -4,8 +4,10 @@ Replaces ``libtsd_tpu/ops/pallas/ola.py::_ola_filter_planes`` (reached
 through ``ola_stream_planes`` / ``ola_filter_stream`` / ``ola_filter``).
 What bounds it on the H100 and what its design does about it is set out at
 the top of ``csrc/ola.cu``: a window moves 16 bytes a sample and costs
-~10 log2 Nf flop a sample, so it is bound by device memory, and each
-window stays in shared memory from its load to its store.
+~10 log2 Nf flop a sample, so it is bound by device memory; each window
+stays on chip from its load to its store, transformed forward and back on
+the register-resident FFT core of ``csrc/fft_reg.cuh`` (the twiddles are
+``fft.twiddles(log2 Nf)``, #4's table).
 
 Semantics (the JAX package's): x is (C, N) complex with N a multiple of
 the hop Ne, the state the last V input samples of each channel (zeros for
@@ -15,7 +17,7 @@ outputs.  The new state is the last V samples of [state | x].  Complex taps
 are supported.
 
 The JAX kernel's precision tiers ("highest", "split") have no counterpart
-here: the kernel's radix-16 FFT and the plain version's ``torch.fft`` are
+here: the kernel's FFT and the plain version's ``torch.fft`` are
 fp32 throughout, so ``OlaFft`` runs both tiers this way and the port is
 held to the "highest" tier's gate (1e-5 of the peak) on both.
 
@@ -30,6 +32,7 @@ import torch
 
 from ...config import complex_dtype
 from . import _build
+from .fft import twiddles
 
 __all__ = ["ola_plan", "freq_response", "ola_stream", "ola_stream_plain",
            "ola_filter_stream", "ola_filter"]
@@ -64,8 +67,8 @@ def freq_response(h, Nf: int, device) -> torch.Tensor:
     """H = FFT_Nf(h) in natural bin order, complex64 on ``device``, float64
     on the host and rounded once: the response :func:`ola_stream` takes (the
     JAX package's ``_freq_response`` gives its own kernel's [k1, q] layout
-    in the same role).  The kernel reads it in its FFT's position order
-    itself."""
+    in the same role).  The kernel's forward transform leaves each thread
+    natural-order bins, so it reads H as it is, coalesced."""
     H = np.fft.fft(np.asarray(h), Nf).astype(np.complex64)
     return torch.as_tensor(H, device=device)
 
@@ -124,9 +127,11 @@ def ola_stream(x: torch.Tensor, state: torch.Tensor, H: torch.Tensor,
     y = torch.empty_like(x)
     if C and N:
         _build.require_cuda(x, state, hp, y)
+        log2nf = Nf.bit_length() - 1
         err = _build.lib().ola_f32(
-            _build.ptr(x), _build.ptr(state), _build.ptr(hp), _build.ptr(y),
-            C, N, Nf.bit_length() - 1, V, _build.stream_ptr(x.device))
+            _build.ptr(x), _build.ptr(state), _build.ptr(hp),
+            _build.ptr(twiddles(log2nf, x.device)), _build.ptr(y), C, N,
+            log2nf, V, _build.stream_ptr(x.device))
         _build.check(err, "ola_f32")
         ola_stream.launches += 1
     return y, _new_state(x, state, V)

@@ -401,9 +401,11 @@ def test_demod_kernels_without_build_raise(dev, tmp_path, monkeypatch):
 # Gates: #9's output and new state to 1e-5 of the plain version's peak
 # (the JAX gate between its Pallas OLA kernel and XLA's FFT path,
 # tests/test_pallas.py:148,224); #10's correlation and energy planes to
-# 1e-5 of their peak, its raw score to 1e-4 absolute.  Both sides are fp32:
-# #9 against torch.fft in another butterfly order, #10 against cuDNN's
-# fp32 convolution (TF32 off) in another summation order.
+# 1e-5 of their peak, its raw score to 1e-4 absolute.  #9 is fp32 against
+# torch.fft in another butterfly order; #10 computes the JAX "split" tier
+# (bf16 pieces, ~4-5e-6 of the peak on random data,
+# tests/test_torch_ola_detfront_design.py) against cuDNN's fp32
+# convolution (TF32 off).
 
 def _cplx(g, dev, *shape):
     return torch.complex(torch.randn(shape, generator=g, device=dev),
@@ -411,7 +413,9 @@ def _cplx(g, dev, *shape):
 
 
 @pytest.mark.parametrize("complex_taps", [False, True])
-@pytest.mark.parametrize("K,Nf", [(129, 256), (128, 4096), (1000, 16384)])
+@pytest.mark.parametrize("K,Nf", [(129, 256), (100, 512), (200, 1024),
+                                  (300, 2048), (128, 4096), (128, 8192),
+                                  (1000, 16384)])
 def test_ola_kernel(dev, K, Nf, complex_taps):
     """#9 against its plain version on two consecutive blocks at an odd
     channel count, the second from the carried state."""
@@ -477,6 +481,53 @@ def test_detfront_kernel(dev, M, n):
             assert rel(a, b) < 1e-5
         assert (k[3] - p[3]).abs().max().item() < 1e-4
         st = fr.step(st, xb)[0]
+
+
+def test_detfront_kernel_long_pattern(dev):
+    """#10 at M = 5000 (5 chunks of tap blocks, a 4992-sample state)
+    against its plain version on two consecutive blocks."""
+    from libtsd_tpu_torch.ops.kernels import detfront as DF
+    M, n = 5000, 3 * 4096 + 128
+    rng = np.random.default_rng(M)
+    pat = rng.standard_normal(M) + 1j * rng.standard_normal(M)
+    fr = DF.DetFront.create(np.conj(pat[::-1]) / np.linalg.norm(pat),
+                            device=dev)
+    g = torch.Generator(device=dev).manual_seed(M)
+    x = _cplx(g, dev, 2, 2 * n)
+    st = fr.init_for(x)
+    for xb in (x[:, :n], x[:, n:]):
+        k = DF.detfront(xb, st, fr.taps, M)
+        p = DF.detfront_plain(xb, st, fr.taps, M)
+        for a, b in zip(k[:3], p[:3]):
+            assert rel(a, b) < 1e-5
+        assert (k[3] - p[3]).abs().max().item() < 1e-4
+        st = fr.step(st, xb)[0]
+
+
+@pytest.mark.parametrize("M", [128, 1500])
+def test_detfront_kernel_silent_stretch_is_exact_zero(dev, M):
+    """After a zero state, a block whose middle 4096 samples are exact
+    zeros: every output whose window lies in the silence is exactly 0 in
+    cr, ci, en and the score, as in the plain version; the block is within
+    the gates of the plain version everywhere."""
+    from libtsd_tpu_torch.ops.kernels import detfront as DF
+    rng = np.random.default_rng(M + 1)
+    pat = rng.standard_normal(M) + 1j * rng.standard_normal(M)
+    fr = DF.DetFront.create(np.conj(pat[::-1]) / np.linalg.norm(pat),
+                            device=dev)
+    g = torch.Generator(device=dev).manual_seed(M + 1)
+    x = _cplx(g, dev, 3, 3 * 4096)
+    x[:, 4096:8192] = 0
+    st = fr.init_for(x)
+    k = DF.detfront(x, st, fr.taps, M)
+    p = DF.detfront_plain(x, st, fr.taps, M)
+    silent = slice(4096 + M - 1, 8192)
+    for a, b in zip(k, p):
+        assert torch.count_nonzero(a[:, silent]).item() == 0
+        assert torch.count_nonzero(b[:, silent]).item() == 0
+    for a, b in zip(k[:3], p[:3]):
+        assert rel(a, b) < 1e-5
+    assert (k[3] - p[3]).abs().max().item() < 1e-4
 
 
 @pytest.mark.parametrize("engine", ["cuda", "cuda-fused"])

@@ -29,7 +29,7 @@ LOG2NS = list(range(8, 15))          # n = 256 .. 16384, every size #4 takes
 
 def fft_bin(p, L):
     """Bin held by position p after the passes (mixed-radix digit
-    reversal, the remainder digit first), as fft_bin in fft_smem.cuh."""
+    reversal, the remainder digit first)."""
     p = np.asarray(p)
     rb = (L & 3) or 4
     out, shift, rem = np.zeros_like(p), 0, L

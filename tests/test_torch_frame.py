@@ -1,8 +1,8 @@
 """The frame receiver's ops and detector in the port against the JAX
 package on the CPU, on the same numpy inputs: the OLA cost model and plan,
-the FFT passes kernel #9 is built from, ``MovingAverage``, the quadrature
-discriminator, ``OlaFft``, kernel #9's and #10's plain versions and the
-``Detector`` on its three engines.
+``MovingAverage``, the quadrature discriminator, ``OlaFft``, kernel #9's
+and #10's plain versions and the ``Detector`` on its three engines (the
+kernels' own numpy models are tests/test_torch_ola_detfront_design.py).
 
 Tolerances and why:
 
@@ -21,12 +21,11 @@ Tolerances and why:
   window's mean) and the discriminator (one ``angle`` of a product).
 * 1e-5 of the peak: ``OlaFft`` against JAX's "xla" engine, #9's plain
   version against a float64 ``np.convolve`` (the JAX gate of
-  tests/test_pallas.py:148), the numpy model of the kernel's FFT passes
-  against ``np.fft``: float32 FFTs in other butterfly orders.
+  tests/test_pallas.py:148): float32 FFTs in other butterfly orders.
 * #10's plain version and the ``Detector`` against JAX, the gates of
   tests/test_detfront.py:36-42: valid masks and positions equal, score
   within 5e-4, gain and theta within 1e-3 (the JAX fused engine computes
-  in bf16 hi/lo "split", ~1e-5; the port's engines in fp32).
+  in bf16 hi/lo "split", ~1e-5; the port's plain versions in fp32).
 
 The file's one Pallas-interpreter call is JAX's ``DetFront`` at M = 128,
 n = 8192.
@@ -89,64 +88,6 @@ def test_ola_plan_exact():
                     OLt.ola_plan(K, Nf)
                 continue
             assert OLt.ola_plan(K, Nf) == want
-
-
-def _fft_bin(log2n):
-    """Bin held by each position of fft_forward's output (its mixed-radix
-    digit reversal: one first pass of radix 2, 4 or 8 when log2n is not a
-    multiple of 4, then radix 16), as fft_bin in csrc/fft_smem.cuh."""
-    p = np.arange(1 << log2n)
-    b = np.zeros_like(p)
-    rem, shift = log2n, 0
-    rb = (log2n & 3) or 4
-    while rem > 0:
-        rem -= rb
-        b += (p >> rem) << shift
-        p = p & ((1 << rem) - 1)
-        shift += rb
-        rb = 4
-    return b
-
-
-def _fft_model(x, transposed):
-    """numpy model of csrc/fft_smem.cuh: fft_forward (each pass an R-point
-    DFT then twiddles; the remainder radix first) or fft_forward_t (the
-    transposed passes in reverse order, twiddles first)."""
-    n = x.shape[-1]
-    L = n.bit_length() - 1
-    rb = L & 3
-    passes = ([(rb, L)] if rb else []) + [(4, m) for m in
-                                           range(L - rb, 3, -4)]
-    if transposed:
-        passes = passes[::-1]
-    buf = x.astype(np.complex128).copy()
-    for LR, log2m in passes:
-        R, lq = 1 << LR, log2m - LR
-        c = np.arange(1 << (L - LR))
-        t = c & ((1 << lq) - 1)
-        idx = (((c >> lq) << log2m) + t)[:, None] + (np.arange(R) << lq)
-        e = (t[:, None] * np.arange(R)) << (L - log2m)
-        w = np.exp(-2j * np.pi * e / n)
-        v = buf[idx]
-        v = np.fft.fft(v * w, axis=-1) if transposed else \
-            np.fft.fft(v, axis=-1) * w
-        buf[idx] = v
-    return buf
-
-
-@pytest.mark.parametrize("L", [4, 5, 6, 7, 8, 12, 13, 14])
-def test_fft_passes_and_transpose(L):
-    """fft_forward leaves bin fft_bin(p) at position p; fft_forward_t takes
-    that position order back to natural order, so #9's inverse
-    conj(F_t(conj(Y H))) / Nf needs no permuting pass."""
-    rng = np.random.default_rng(L)
-    x = cplx(rng, 1 << L).astype(np.complex128)
-    perm = _fft_bin(L)
-    X = np.fft.fft(x)
-    assert rel(_fft_model(x, False), X[perm]) < 1e-12
-    assert rel(_fft_model(X[perm], True), np.fft.fft(X)) < 1e-12
-    y = np.conj(_fft_model(np.conj(X[perm]), True)) / (1 << L)
-    assert rel(y, x) < 1e-12
 
 
 # ---------------------------------------------------- filters and demod
