@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time kernels #2-#11 of other trees of the port against this tree's.
+"""Time kernels #1-#11 of other trees of the port against this tree's.
 
     python3 ab_kernels.py [--stages] [--only GROUPS] DIR [DIR ...]
 
@@ -24,9 +24,15 @@ shapes through each tree's own wrapper (#9 on 64 x 130,944 complex
 samples, 33 windows of Nf 4096 at 128 complex taps, and at Nf 8192 and
 16384 on 16 and 8 windows; #10 on 64 x 131,072 at M = 128; each held to
 this tree's plain version: #9 1e-5 of the peak, #10's planes 1e-5 of
-their peak and its score 1e-4 absolute).  --only takes a comma list of
-the groups "sb" (#5, #6), "iir" (#7), "fm" (#8), "chain" (#3, #11),
-"fft" (#2, #4) and "frame" (#9, #10); all by default.  Each pair is
+their peak and its score 1e-4 absolute), #1 on 2^22 float32 samples at
+K = 256 (the main path's lowpass), 3 and 600 (random taps), each tree's
+C entry called as its own signature says, then at K = 256 through each
+tree's wrapper (both held to this tree's plain version, 1e-4 of the
+peak, and this tree to a float64 FIR, 1e-5), and the SASS of #3, #10
+and #11 (their sources compiled alone, ``cuobjdump -sass``) compared
+line for line.  --only takes a comma list of the groups "sb" (#5, #6),
+"iir" (#7), "fm" (#8), "chain" (#3, #11), "fft" (#2, #4), "frame" (#9,
+#10) and "fir" (#1); all by default.  Each pair is
 timed other, this, this, other with ``chip_smoke.time_ms``; #2-#4 and #11
 are held to this tree's plain version (1e-4 of the peak; the spectra also
 1e-3 per bin).  --stages also builds this tree's kernels with
@@ -41,6 +47,7 @@ from __future__ import annotations
 import ctypes
 import importlib.util
 import os
+import re
 import sys
 import time
 
@@ -50,8 +57,9 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 NFFT = 4096
 GROUPS = ("fft", "chain", "sb", "iir", "fm",    # --only: kernels #2/#4,
-          "frame")                               # #3/#11, #5/#6, #7, #8,
-                                                 # #9/#10
+          "frame", "fir")                        # #3/#11, #5/#6, #7, #8,
+                                                 # #9/#10, #1
+FIR_TAPS = (256, 3, 600)                         # #1's tap counts
 
 
 def _first_port_taps(G, precision, passes):
@@ -300,6 +308,10 @@ def ab_tree(other: str, y: torch.Tensor, x: torch.Tensor, G: torch.Tensor,
         res.update(ab_frame(ob, other, inp))
     if "chain" in only:
         res.update(ab_chain(ob, olib, other, x, G, dev))
+    if "fir" in only:
+        res.update(ab_fir(ob, olib, other, inp, dev))
+        if not sass_same(other):
+            FAILED.append(f"{other}: #3/#10/#11 SASS differs (time them)")
     if "fft" not in only:
         return res
     nseg = len(range(0, cs.N_MAIN - cs.NFFT, cs.NFFT // 2))
@@ -532,6 +544,114 @@ def ab_frame(ob, other: str, inp: dict) -> dict:
     return res
 
 
+def fir_inputs(dev: torch.device) -> dict:
+    """#1's input (2^22 float32 samples, seeded) and taps: the main path's
+    256-tap lowpass and random taps at K = 3 and 600."""
+    from libtsd_tpu_torch.ops.fir_design import fir_lowpass
+    gen = torch.Generator(device=dev).manual_seed(6)
+    rng = np.random.default_rng(6)
+    taps = {K: (np.asarray(fir_lowpass(256, 0.2)) if K == 256
+                else rng.standard_normal(K)) for K in FIR_TAPS}
+    return {"x": torch.randn(1 << 22, generator=gen, device=dev),
+            "fir_taps": taps}
+
+
+def fir_caller(ob, olib, dev: torch.device):
+    """A tree's C entry of #1, called as its own ``SIGNATURES`` say: the
+    first port's (taps zero-padded to kp, a multiple of 256, and the
+    shared-memory bytes of its window) or this tree's (the K taps)."""
+    from libtsd_tpu_torch.ops.kernels import _build, fir
+    first = len(ob.SIGNATURES["fir_f32"]) == 7
+    stream = _build.stream_ptr(dev)
+
+    def call(h, x):
+        t = torch.as_tensor(np.asarray(h, np.float32), device=dev)
+        y = torch.empty_like(x)
+        if first:
+            t, kp = fir.pad_taps(t)
+            args = (kp, (2 * kp - 1 + 4096) * 4)
+        else:
+            args = (t.numel(),)
+        return lambda: (_build.check(olib.fir_f32(
+            _build.ptr(x), _build.ptr(t), _build.ptr(y), x.numel(), *args,
+            stream), "fir_f32"), y)[1]
+    return call
+
+
+def ab_fir(ob, olib, other: str, inp: dict, dev: torch.device) -> dict:
+    """#1 of the other tree against this tree's, in turns, at 2^22 samples
+    and K = 256, 3 and 600: the C entries alone (launches back to back),
+    and at K = 256 each tree's wrapper as a caller has it.  Both held to
+    this tree's plain version (1e-4 of the peak) and this tree to a float64
+    FIR (1e-5 of the peak)."""
+    import chip_smoke as cs
+    from libtsd_tpu_torch.ops.kernels import _build, fir
+    x = inp["x"]
+    oth_call = fir_caller(ob, olib, dev)
+    this_call = fir_caller(_build, _build.lib(), dev)
+    res = {}
+    for K, h in inp["fir_taps"].items():
+        name = f"fir 2^22 K {K}"
+        oth, this = oth_call(h, x), this_call(h, x)
+        ref = fir.fir_plain(h, x)
+        cs.check(f"ab {name} other tree vs plain", oth(), ref, cs.TOL_F32)
+        cs.check(f"ab {name} this tree vs plain", this(), ref, cs.TOL_F32)
+        r64 = torch.as_tensor(np.convolve(x.double().cpu().numpy(),
+                                          np.asarray(h, np.float64))
+                              [:x.numel()], device=dev)
+        cs.check(f"ab {name} this tree vs float64", this(), r64, 1e-5)
+        del ref, r64
+        res[name] = turns(name, other, oth, this)
+    ofir = other_wrapper(ob, other, "fir")
+    h = inp["fir_taps"][256]
+    name = "fir 2^22 K 256 through the wrappers"
+    res[name] = turns(name, other, lambda: ofir.fir_kernel(h, x),
+                      lambda: fir.fir_kernel(h, x))
+    return res
+
+
+SASS_SOURCES = ("chain.cu", "chain_halo.cu", "detfront.cu")
+
+
+def sass_same(other: str) -> bool:
+    """#3's, #11's and #10's SASS (``cuobjdump -sass`` of each source
+    compiled alone with this tree's flags) in the other tree and in this
+    one: equal line for line (they include chain_body.cuh, whose helpers
+    #1 uses)."""
+    import subprocess
+    import tempfile
+    from libtsd_tpu_torch.ops.kernels import _build
+    nvcc = _build._nvcc()
+    tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    flags = [f for f in _build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler",
+                                                       "-fPIC")]
+    same = True
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as tmp:
+        for src in SASS_SOURCES:
+            text = []
+            for k, root in enumerate((other, os.path.dirname(
+                    os.path.abspath(__file__)))):
+                cub = os.path.join(tmp, f"{k}_{src}.cubin")
+                subprocess.run([nvcc, *flags, "-cubin", "-o", cub,
+                                os.path.join(root, "libtsd_tpu_torch", "csrc",
+                                             src)], check=True)
+                out = subprocess.run([tool, "-sass", cub], check=True,
+                                     capture_output=True, text=True).stdout
+                # anonymous namespaces are named from the file's path
+                text.append([re.sub(r"_GLOBAL__N__[0-9a-f]+_", "_GLOBAL__N_",
+                                    ln) for ln in out.splitlines()
+                             if "code for" not in ln and ".cubin" not in ln])
+            pairs = [(a, b) for a, b in zip(*text) if a != b]
+            diff = len(pairs) + abs(len(text[0]) - len(text[1]))
+            n = sum("/*" in ln for ln in text[1])
+            print(f"check ab sass {src} [{other}]: {n} instructions, "
+                  f"{diff} lines differ {'ok' if diff == 0 else 'DIFFERS'}")
+            for a, b in pairs[:4]:
+                print(f"  other: {a.strip()}\n  this:  {b.strip()}")
+            same = same and diff == 0
+    return same
+
+
 def main() -> int:
     argv = sys.argv[1:]
     only = set(GROUPS)
@@ -567,6 +687,8 @@ def main() -> int:
         inp.update(fm_inputs(dev))
     if "frame" in only:
         inp.update(frame_inputs(dev))
+    if "fir" in only:
+        inp.update(fir_inputs(dev))
     for d in args:
         ab_tree(d, y, x, G, dev, only, inp)
     if "--stages" in argv:

@@ -49,7 +49,13 @@ Builds the port's CUDA kernels from ``libtsd_tpu_torch/csrc`` into
   receiver at 256 x 2^18, each against its unsharded run;
 * the QAM-16 modem (``Qam16Modem``, ``__graft_entry__.entry()``) in both
   ``rx_mode``s: the entry workload, then 2,000 symbols delayed by 1.3
-  samples against the BER and EVM gates of tests/test_receivers.py.
+  samples against the BER and EVM gates of tests/test_receivers.py;
+* BASELINE config 3, the rational resampler: 64 channels x 327,680
+  complex64 samples made on the card, ``RationalResampler`` (48 k -> 44.1
+  k, 147/160) then the 256-tap ``Fir``, 8 chained steps (no kernel: the
+  hot path is one fp32 contraction); two steps of channels 0-3 against
+  float64 numpy from the sinc formula and the same taps, ``resample`` on
+  the reference's cfg3 golden, input Msamples/s and ms a step.
 
 Every kernel is timed beside its plain version (CUDA events, median of 5
 runs after a warm-up, a run being as many back-to-back calls as fill 2 ms,
@@ -62,8 +68,8 @@ run.  Any failure raises and exits non-zero.  Without a CUDA device it
 exits 1 and prints no result.  ``--profile DIR`` adds ``torch.profiler``
 windows over the fused and composed main path, the main path's
 ``psd_welch`` (#4) and one step of each QAM engine, of each frame-receiver
-engine and of both sharded chain forms (device busy time, idle share, top
-kernels; chrome traces into DIR).
+engine, of both sharded chain forms and of the config-3 chain (device
+busy time, idle share, top kernels; chrome traces into DIR).
 
 Output, in order: versions and the card (``nvidia-smi`` name, power
 limit), build time, one line per check with its tolerance, timings, launch
@@ -88,6 +94,7 @@ C_CHECK = 16                       # channels of the kernel-vs-plain checks
 NFFT = 4096
 PG_ONE = "periodogram4096 1x2^22"  # #2 timed at one channel beside C_MAIN
 TOL_F32 = 1e-4                     # fp32 results, relative to the peak
+TOL_FIR64 = 1e-5                   # #1 against a float64 FIR, of the peak
 TOL_TIER = 1e-2                    # across tiers that round taps or x to bf16
 # Spectra are also held bin by bin: |a-b| / (|b| + FLOOR * peak).  Behind
 # the 256-tap lowpass most bins lie orders of magnitude below the peak, so
@@ -145,6 +152,15 @@ TOL_IIR = 1e-5
 # gates of tests/test_receivers.py:89-102
 NSYM_ENTRY, NSYM_GATE = 512, 2000
 TOL_MODEM_BER, TOL_MODEM_EVM = 0.01, 0.15
+
+# BASELINE config 3 at benchmarks/tpu_resample_bench.py:30-58,70-72's
+# largest 64-channel shape: 48 k -> 44.1 k (147/160), then the 256-tap
+# lowpass, STEPS_RS chained steps over one block of C_RS x N_RS complex64
+C_RS, N_RS, STEPS_RS = 64, 160 * 2048, 8
+RATIO_RS = 44100 / 48000
+NC_RS, NPH_RS = 15, 256  # the default interpolator's taps and phases
+TOL_RS = 1e-5          # vs float64 numpy from the sinc formula, of the peak
+TOL_GOLDEN_RS = 5e-3   # cfg3 golden (tests/test_golden_ref.py:82-93)
 
 # the parallel layer: a (chan, time) mesh of virtual shards of one card
 MESH_CHAN, MESH_TIME = 2, 4
@@ -308,6 +324,19 @@ def kernel_checks(h, G, gen, dev) -> dict:
     x = torch.randn(N_MAIN, generator=gen, device=dev)
     err["fir"] = check("#1 fir 1-D N=2^22 K=256 vs plain",
                        fir.fir_kernel(h, x), fir.fir_plain(h, x), TOL_F32)
+    # the repo's own reference: a float64 FIR of the same samples, at one
+    # chunk of taps (3, the main path's 256) and two (600)
+    xn = x.double().cpu().numpy()
+    rng = np.random.default_rng(1)
+    for K, hk in ((256, h), (3, rng.standard_normal(3)),
+                  (600, rng.standard_normal(600))):
+        y = fir.fir_kernel(hk, x)
+        if K != 256:
+            check(f"#1 fir 1-D N=2^22 K={K} vs plain", y,
+                  fir.fir_plain(hk, x), TOL_F32)
+        check(f"#1 fir 1-D N=2^22 K={K} vs float64 numpy", y,
+              torch.as_tensor(np.convolve(xn, np.asarray(hk, np.float64))
+                              [:N_MAIN], device=dev), TOL_FIR64)
     y = torch.randn(C_CHECK, N_MAIN, generator=gen, device=dev)
     err["periodogram4096"] = max(
         check(f"#2 periodogram4096 C={C_CHECK} {p} vs plain",
@@ -532,14 +561,19 @@ def main_bounds_and_library(h, mp, dev) -> dict:
     sample for a FIR, 5 n log2 n per complex n-point FFT, 4 per bin for
     |X|^2 and the accumulation.  #3's headline tier, int16/2, does its FIR
     as two bf16 passes on the tensor cores (its bound: the direct form's
-    useful products); "highest" does it in fp32 (printed beside it)."""
+    useful products); "highest" does it in fp32 (printed beside it).  #1
+    does its FIR as six bf16 products on the tensor cores (x and h split
+    in three bf16 parts, every xi hj with i + j <= 4)."""
     import torch.nn.functional as F
     y = mp["y"]
     K, frames = len(h), C_MAIN * N_MAIN // NFFT
     spec = frames * (fft_flops(NFFT) + 4 * NFFT)
     nseg = len(range(0, N_MAIN - NFFT, NFFT // 2))
     out = {
-        "fir": bound(8 * N_MAIN + 4 * K, 2 * K * N_MAIN),
+        # #1: six bf16 products (x and h split in three) on the tensor
+        # cores; on the FMA pipes only the split's two subtractions and
+        # the sum of the two accumulator sets, 3 flop a sample
+        "fir": bound(8 * N_MAIN + 4 * K, 3 * N_MAIN, 6 * 2 * K * N_MAIN),
         "periodogram4096": bound(4 * C_MAIN * N_MAIN + 4 * C_MAIN * NFFT,
                                  spec),
         PG_ONE: bound(4 * N_MAIN + 4 * NFFT, spec / C_MAIN),
@@ -1562,6 +1596,109 @@ def parallel_timings(ps) -> tuple[dict, dict]:
     return {"fir_periodogram4096_halo": (ms_k, ms_p, bms, by, None)}, extra
 
 
+def sinc_taps64(nc: int, fcut: float, tau: float) -> np.ndarray:
+    """Windowed-sinc fractional-delay taps at offset tau, float64, written
+    here from the reference's formula (itrp.cc:24-39: the Hann window
+    shifted by tau, the taps scaled to a unit sum) so that the config-3
+    check holds the resampler's one-cycle matrix, not a copy of it."""
+    k = np.arange(nc) - nc // 2 - tau
+    h = 2 * fcut * np.sinc(2 * fcut * k) * (0.5 + 0.5 * np.cos(
+        k * (2 * np.pi / nc)))
+    return h / h.sum()
+
+
+def resample_phase(gen, dev, card: str, prof_dir=None) -> dict:
+    """BASELINE config 3 as a user drives it: ``RationalResampler.create``
+    (147/160) and ``Fir.create`` (256-tap lowpass), STEPS_RS chained steps
+    of both over one block of C_RS x N_RS complex64 samples made on the
+    card (benchmarks/tpu_resample_bench.py steps one block so).  Checks:
+    steps 0 and 1 of channels 0-3 against float64 numpy from the sinc
+    formula and the same FIR taps (step 1 carries both states), within
+    TOL_RS of the peak; ``resample`` of the reference's cfg3 input on the
+    card against its output within TOL_GOLDEN_RS (the golden test's trim
+    and bound).  Prints input Msamples/s and ms a step (CUDA events over
+    the chained steps, after a warm-up run)."""
+    from libtsd_tpu_torch.ops.filter_rt import Fir
+    from libtsd_tpu_torch.ops.fir_design import fir_lowpass
+    from libtsd_tpu_torch.ops.resample import RationalResampler, resample
+    rr = RationalResampler.create(RATIO_RS, device=dev)
+    h = fir_lowpass(256, 0.2, "hn")
+    fir = Fir.create(h, device=dev)
+    w = torch.randn(2, C_RS, N_RS, generator=gen, device=dev)
+    x = torch.complex(w[0], w[1])
+    del w
+    nout = N_RS * rr.p // rr.q
+
+    def run(steps):
+        srr, sf = rr.init_for(x), fir.init_for(x[..., :nout])
+        ys = []
+        for _ in range(steps):
+            srr, y = rr.step(srr, x)
+            sf, y = fir.step(sf, y)
+            ys.append(y)
+        return ys
+
+    ys = run(STEPS_RS)
+    torch.cuda.synchronize()
+    if not all(y.shape == (C_RS, nout) and bool(torch.isfinite(
+            torch.view_as_real(y)).all()) for y in ys):
+        raise AssertionError("config 3: output shape or non-finite values")
+    # float64 reference of channels 0-3 over two blocks, built without the
+    # program's A: output j of the stream after K zeros reads the K samples
+    # from ip_j + 1 on, ip_j = j q // p, with the taps of the phase nearest
+    # tau_j = (j q mod p) / p of NPH_RS + 1
+    K = NC_RS
+    fcut = min(0.4, 0.5 * min(1.0, rr.p / rr.q))
+    lut = np.stack([sinc_taps64(K, fcut, k / NPH_RS)
+                    for k in range(NPH_RS + 1)])
+    j = np.arange(2 * nout)
+    ip = j * rr.q // rr.p
+    ph = np.rint(((j * rr.q) % rr.p) / rr.p * NPH_RS).astype(np.int64)
+    xs = np.tile(x[:4].cpu().numpy().astype(np.complex128), 2)
+    xx = np.concatenate([np.zeros((4, K)), xs], axis=1)
+    r64 = sum(lut[ph, i] * xx[:, ip + 1 + i] for i in range(K))
+    ref = np.stack([np.convolve(v, h)[:r64.shape[1]] for v in r64])
+    got = torch.cat([ys[0][:4], ys[1][:4]], dim=1)
+    err = check("config3 RationalResampler 147/160 -> Fir 256 taps, steps "
+                "0-1, channels 0-3 vs float64 numpy (sinc taps, same FIR)",
+                torch.view_as_real(got),
+                torch.view_as_real(torch.as_tensor(ref, device=dev)), TOL_RS)
+    gold = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "golden")
+    yg = resample(torch.as_tensor(np.load(os.path.join(gold, "cfg3_x.npy")),
+                                  device=dev), RATIO_RS)
+    yr = np.load(os.path.join(gold, "cfg3_y.npy"))
+    dg = float(np.abs(yg.cpu().numpy()[50:-50] - yr[50:-50]).max())
+    ok = yg.shape == yr.shape and dg < TOL_GOLDEN_RS
+    print(f"check config3 resample(cfg3_x, 44100/48000) on the card vs the "
+          f"reference's cfg3_y: {tuple(yg.shape)} samples, max_abs_err="
+          f"{dg:.3e} (50 trimmed at each end) tol={TOL_GOLDEN_RS:g} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("config 3 golden")
+    del ys
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(3):
+        e0.record()
+        run(STEPS_RS)
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1) / STEPS_RS)
+    ms = float(np.median(times))
+    rate = C_RS * N_RS / ms / 1e3
+    print(f"time config3 step (RationalResampler + Fir 256, {C_RS} x {N_RS} "
+          f"complex64): {ms:.4f} ms a step, {rate:.1f} input Msamples/s "
+          f"(median of 3 runs of {STEPS_RS} chained steps; {card})")
+    if prof_dir:
+        srr, sf = rr.init_for(x), fir.init_for(x[..., :nout])
+        profile_windows({"config3_step": lambda: fir.step(
+            sf, rr.step(srr, x)[1])}, prof_dir, calls=3)
+    return {"ms_per_step": ms, "msamples_per_s": rate, "max_abs_err": err,
+            "golden_err": dg, "channels": C_RS, "n": N_RS}
+
+
 def profile(mp, out_dir: str) -> None:
     """Optional phase: torch.profiler over 5 back-to-back calls of the
     fused int16/2 chain (with G's checked taps cached, as a caller gets
@@ -1636,8 +1773,8 @@ def main() -> int:
     ap.add_argument("--profile", metavar="DIR",
                     help="also profile the fused and composed main path, "
                          "one step of each QAM and frame-receiver engine, "
-                         "the FM chain and both sharded chain forms; "
-                         "chrome traces go into DIR")
+                         "the FM chain, both sharded chain forms and the "
+                         "config-3 chain; chrome traces go into DIR")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
@@ -1796,6 +1933,12 @@ def main() -> int:
     modem = modem_phase(args.seed, dev)
     print(f"phase modem: {time.perf_counter() - t_phase:.1f} s")
 
+    # BASELINE config 3, the rational resampler (no kernel)
+    t_phase = time.perf_counter()
+    cfg3 = resample_phase(gen, dev, card, args.profile)
+    torch.cuda.empty_cache()
+    print(f"phase config3: {time.perf_counter() - t_phase:.1f} s")
+
     print("launches (each path): " + json.dumps(launches))
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
@@ -1834,7 +1977,8 @@ def main() -> int:
                                       for e, v in fsteps.items()},
                        "fm_step": {"composed_ms": fm_step_ms,
                                    "channels": C_FM, "n": N_FM},
-                       "modem": modem, "parallel": par_extra},
+                       "modem": modem, "parallel": par_extra,
+                       "config3": cfg3},
                       f, indent=1)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-// FIR core shared by fir.cu and chain.cu: one block of FIR_THREADS threads
+// FIR core of chain_body.cuh's passes-0 tier: one block of FIR_THREADS threads
 // computes FIR_TILE consecutive outputs of a real FIR in fp32,
 //
 //     y[i] = sum_{k < kp} taps[k] * win[kp - 1 + i - k],   0 <= i < FIR_TILE,

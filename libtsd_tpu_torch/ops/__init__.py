@@ -1,2 +1,2 @@
 from . import (fft, filter_rt, fir_design, iir_design, kernels,  # noqa: F401
-               psd, resample, rng, signal, window)
+               poly, psd, resample, rng, signal, window)

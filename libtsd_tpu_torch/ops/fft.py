@@ -10,8 +10,11 @@ everything else goes to ``torch.fft``.  ``engine="kernel"`` forces the
 kernel wrapper (which takes its plain version for a CPU tensor),
 ``engine="torch"`` forces ``torch.fft``.
 
+``resample_freq`` resamples by zero-padding or truncating the spectrum
+(``torch.fft``, as the JAX package's ``jnp.fft``).
+
 Not ported yet: ``czt``, ``goertzel``, ``goertzel_stream``, ``hadamard``,
-``wht``, ``resample_freq``, ``force_csym`` (see ROADMAP.md).
+``wht``, ``force_csym`` (see ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -25,8 +28,8 @@ from ..config import complex_dtype, device as _device, real_dtype
 from .kernels.fft import NMAX, NMIN, FftPow2
 
 __all__ = ["fft", "ifft", "rfft", "irfft", "fftshift", "ifftshift",
-           "fft_freqs", "next_pow2", "delay_signal", "ola_complexity",
-           "ola_complexity_optimize"]
+           "fft_freqs", "next_pow2", "delay_signal", "resample_freq",
+           "ola_complexity", "ola_complexity_optimize"]
 
 ENGINES = ("auto", "kernel", "torch")
 
@@ -143,6 +146,36 @@ def delay_signal(x: torch.Tensor, delay) -> torch.Tensor:
 
 
 # ---------------------------------------------------------- OLA cost model
+
+def resample_freq(x: torch.Tensor, ratio: float) -> torch.Tensor:
+    """Frequency-domain resampling by zero-padding or truncating the
+    spectrum (parity: rééchan_freq, fourier.cc:1397-1434, with its
+    sqrt(ratio) energy scaling)."""
+    n = x.shape[-1]
+    n2 = int(round(n * ratio))
+    if n2 == n:
+        # ratios that round to the same length too: a sqrt(ratio) gain on
+        # an unchanged length would disagree with ratio == 1
+        return x
+    if n2 < 2 or n < 2:
+        raise ValueError(
+            f"resample_freq: lengths below 2 are degenerate (n={n}, "
+            f"target n2={n2}): the half-spectrum split has no bins")
+    X = torch.fft.fft(x) * (1.0 / np.sqrt(n))
+    X2 = torch.zeros(tuple(x.shape[:-1]) + (n2,), dtype=complex_dtype,
+                     device=x.device)
+    if ratio > 1:
+        # (n + 1) // 2 positive bins: the reference copies n / 2
+        # (fourier.cc:1406), which for odd n drops positive bin (n - 1) / 2
+        # and keeps its conjugate
+        X2[..., :(n + 1) // 2] = X[..., :(n + 1) // 2]
+        X2[..., n2 - n // 2:] = X[..., n - n // 2:]
+    else:
+        X2[..., :n2 // 2] = X[..., :n2 // 2]
+        X2[..., n2 - n2 // 2:] = X[..., n - n2 // 2:]
+    y = torch.fft.ifft(X2) * (np.sqrt(n2) * np.sqrt(ratio))
+    return y if x.is_complex() else y.real
+
 
 def ola_complexity(M: int, Ne: int) -> Tuple[float, int, int]:
     """FLOPs/sample of overlap-add FFT filtering with pattern length M and

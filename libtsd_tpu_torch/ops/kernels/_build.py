@@ -44,7 +44,7 @@ F64 = ctypes.c_double
 
 # C entry points: name -> argument types (every one returns cudaError_t)
 SIGNATURES = {
-    "fir_f32": [P, P, P, I64, I, I, P],
+    "fir_f32": [P, P, P, I64, I, P],
     "periodogram4096_f32": [P, P, P, I, I64, P],
     "fir_periodogram4096": [P, P, P, P, P, I, I, I64, I, I, I, I, P],
     "fft_pow2_f32": [P, P, P, P, P, I, I, I, P],

@@ -2,9 +2,11 @@
 
 Replaces ``libtsd_tpu/ops/pallas/fir.py::fir_pallas`` /
 ``fir_pallas_complex``.  What bounds the kernel on the H100 and what its
-design does about it is set out at the top of ``csrc/fir.cu``: 2K flop per
-sample against 8 bytes, so FMA issue and the shared-memory loads that feed
-it bound it, and the register-blocked core issues ~1 load per 4 FMAs.
+design does about it is set out at the top of ``csrc/fir.cu``: the FIR on
+the tensor cores, x and h each split into three bf16 parts and the six
+products xi hj with i + j <= 4 summed in fp32 (the accuracy of the JAX
+kernel's HIGHEST), from a window staged one tile ahead; any tap count, in
+chunks of 496 taps.
 
 ``fir_kernel(h, x)`` takes a CPU tensor to the plain version
 (:func:`fir_plain`, the Toeplitz-matmul FIR of ``ops.filter_rt`` at fp32)
@@ -21,8 +23,7 @@ from . import _build
 
 __all__ = ["fir_kernel", "fir_kernel_complex", "fir_plain"]
 
-_TILE = 4096            # outputs per block (FIR_TILE)
-_TAP_QUANTUM = 256      # taps are zero-padded to a multiple (FIR_TAP_QUANTUM)
+_TAP_QUANTUM = 256      # FIR_TAP_QUANTUM of fir_tile.cuh (chain's fp32 tier)
 
 
 def _check_1d(x: torch.Tensor) -> None:
@@ -35,8 +36,9 @@ def _check_1d(x: torch.Tensor) -> None:
 
 
 def pad_taps(taps: torch.Tensor) -> tuple[torch.Tensor, int]:
-    """fp32 taps zero-padded to kp, a multiple of the FIR core's tap
-    quantum (FIR_TAP_QUANTUM in csrc/fir_tile.cuh).  Returns (taps, kp)."""
+    """fp32 taps zero-padded to kp, a multiple of the fp32 FIR core's tap
+    quantum (FIR_TAP_QUANTUM in csrc/fir_tile.cuh, the fused chain's
+    "highest" tier).  Returns (taps, kp)."""
     K = taps.shape[0]
     kp = max(_TAP_QUANTUM, -(-K // _TAP_QUANTUM) * _TAP_QUANTUM)
     return F.pad(taps.to(torch.float32), (0, kp - K)).contiguous(), kp
@@ -48,6 +50,27 @@ def fir_plain(h, x: torch.Tensor) -> torch.Tensor:
     return fir_filter(np.asarray(h, np.float64), x.to(torch.float32))
 
 
+_taps_cache: dict = {}
+
+
+def device_taps(h, device: torch.device) -> torch.Tensor:
+    """The fp32 taps on the card, kept per (taps, device): a copy from host
+    memory on every call would wait for the stream each time.  The key is
+    the taps' bytes, hashed on every call.  At most 16 tap sets are kept:
+    the 17th empties the cache, so a caller that cycles through more than
+    16 (a filter bank) pays the host copy again on each call."""
+    hf = np.ascontiguousarray(np.asarray(h, np.float32).ravel())
+    if hf.size == 0:
+        raise ValueError("fir_kernel needs at least one tap")
+    key = (hf.tobytes(), str(device))
+    taps = _taps_cache.get(key)
+    if taps is None:
+        if len(_taps_cache) >= 16:
+            _taps_cache.clear()
+        taps = _taps_cache[key] = torch.as_tensor(hf, device=device)
+    return taps
+
+
 def fir_kernel(h, x: torch.Tensor) -> torch.Tensor:
     """y[n] = sum_k h[k] x[n-k], zero initial state, len(y) == len(x).
     h: host taps; x: (N,) real."""
@@ -55,19 +78,16 @@ def fir_kernel(h, x: torch.Tensor) -> torch.Tensor:
     if _build.use_plain(x):
         return fir_plain(h, x)
     x = x.to(torch.float32).contiguous()
+    if x.data_ptr() % 16:
+        x = x.clone()                 # the kernel copies 16 bytes at a time
     y = torch.empty_like(x)
     n = x.shape[0]
     if n == 0:
         return y
-    taps, kp = pad_taps(torch.as_tensor(np.asarray(h, np.float32),
-                                        device=x.device))
-    smem = (2 * kp - 1 + _TILE) * 4
-    if smem > _build.SMEM_MAX:
-        raise ValueError(f"{len(np.asarray(h))} taps exceed the kernel's "
-                         f"shared-memory window")
+    taps = device_taps(h, x.device)
     _build.require_cuda(x, taps, y)
     err = _build.lib().fir_f32(_build.ptr(x), _build.ptr(taps), _build.ptr(y),
-                               n, kp, smem, _build.stream_ptr(x.device))
+                               n, taps.numel(), _build.stream_ptr(x.device))
     _build.check(err, "fir_f32")
     fir_kernel.launches += 1
     return y

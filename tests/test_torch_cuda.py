@@ -74,6 +74,48 @@ def test_fir_kernel(dev, K, n):
                              fir.fir_plain(h, z.imag))) < TOL
 
 
+def _fir64(h, x):
+    """float64 numpy FIR of the fp32 samples, zero initial state."""
+    xn = x.double().cpu().numpy()
+    return np.convolve(xn, np.asarray(h, np.float64))[:len(xn)]
+
+
+@pytest.mark.parametrize("K", [3, 256, 600, 5000])
+def test_fir_kernel_vs_float64(dev, K):
+    """#1 within 1e-5 of the peak of a float64 FIR (the six bf16 products
+    of the split and mma.sync's truncating sums): one chunk of taps (3,
+    256), two (600) and eleven (5000)."""
+    rng = np.random.default_rng(K + 1)
+    h = rng.standard_normal(K)
+    x = torch.as_tensor(rng.standard_normal(3 * 8192 + 1001)
+                        .astype(np.float32), device=dev)
+    y = fir.fir_kernel(h, x)
+    assert rel(y, torch.as_tensor(_fir64(h, x), device=dev)) < 1e-5
+    assert rel(y, fir.fir_plain(h, x)) < TOL
+
+
+@pytest.mark.parametrize("K", [3, 17, 100, 600, 1000])
+@pytest.mark.parametrize("case", ["empty", "one", "K-1", "below a tile",
+                                  "ragged", "misaligned"])
+def test_fir_kernel_lengths(dev, K, case):
+    """Lengths at the edges of #1's tiles (8192 outputs) and windows: 0, 1,
+    K - 1 samples, less than one tile, a run not a multiple of the tile, and
+    a view 4 bytes off a 16-byte boundary; tap counts not multiples of 16,
+    over one and several chunks of 496."""
+    n = {"empty": 0, "one": 1, "K-1": max(K - 1, 1), "below a tile": 5000,
+         "ragged": 2 * 8192 + 777, "misaligned": 8192 + 5}[case]
+    rng = np.random.default_rng(K)
+    h = rng.standard_normal(K)
+    buf = torch.as_tensor(rng.standard_normal(n + 1).astype(np.float32),
+                          device=dev)
+    x = buf[1:] if case == "misaligned" else buf[:n]
+    y = fir.fir_kernel(h, x)
+    assert y.shape == x.shape and y.dtype == torch.float32
+    if n:
+        assert rel(y, torch.as_tensor(_fir64(h, x), device=dev)) < 1e-5
+        assert rel(y, fir.fir_plain(h, x)) < TOL
+
+
 @pytest.mark.parametrize("lowpass", [False, True])
 @pytest.mark.parametrize("C,frames", [(1, 3), (3, 64), (300, 2), (1, 1),
                                       (2, 7), (5, 9), (1, 1024)])
