@@ -162,6 +162,41 @@ NC_RS, NPH_RS = 15, 256  # the default interpolator's taps and phases
 TOL_RS = 1e-5          # vs float64 numpy from the sinc formula, of the peak
 TOL_GOLDEN_RS = 5e-3   # cfg3 golden (tests/test_golden_ref.py:82-93)
 
+# the spectral layer (no kernel): RtSpectrum at C_SP x N_SP complex64 a
+# step, STEPS_SP chained steps, plain and as a sweep; czt; xcorr; the
+# constant-Q periodogram of T_AUDIO s of real audio at FS_AUDIO
+C_SP, N_SP, STEPS_SP = 64, 1 << 18, 8
+NFFT_SP, NAVG_SP = 4096, 4
+NSUBS_SP, SWEEP_SP = 8, 2048
+N_CZT = 1 << 16        # czt: n = m
+N_XC = 1 << 20         # xcorr: two signals of N_XC samples
+BINS_REF = 256         # czt bins and xcorr lags held to float64 direct sums
+FS_AUDIO, T_AUDIO = 48000.0, 30.0
+FMIN_CQT, FMAX_CQT = 55.0, 14000.0
+TOL_SP = 1e-4          # fp32 spectra, czt, xcorr vs float64, of the peak
+TOL_CQT = 1e-4         # periodogram_cqt on the card vs the CPU, of the peak
+
+# the RDS decoder (tests/test_rds.py:135-150 at full length): T_RDS s of
+# broadcast FM IF at FE_RDS, stereo tones plus 0A groups (an 8-character
+# PS name) and 2A groups (a 64-character radiotext)
+FE_RDS, T_RDS = 1.024e6, 8.0
+PS_RDS = "TSD GPU!"
+RT_RDS = "LIBTSD PORT: RDS DECODED ON THE CARD, 8 S OF FM IF AT 1.024 MHZ"
+N_RDS_CPU = 1 << 20    # rds_baseband on the card vs the CPU on this prefix
+N_RDS_PROF = 1 << 16   # the profile window's prefix (a per-sample PLL loop)
+TOL_RDS = 1e-4         # rds_baseband card vs CPU, of the peak
+
+# the channelizer at benchmarks/tpu_channelizer_bench.py:101-107's widest
+# shapes: M 256 (K 8) over STEPS_CH chained steps of N_CH complex64, the
+# WOLA pair at C_WOLA x N_WOLA, M 256
+M_CH, N_CH, STEPS_CH = 256, 1 << 22, 8
+C_WOLA, N_WOLA = 64, 1 << 16
+TOL_CH = 1e-5          # vs float64 numpy polyphase-FFT, of the peak
+# round trips (tests/test_advanced.py:302-345): a channel-centre tone and
+# broadband noise through dechannelize(channelize()), rms relative; the
+# WOLA pair, rms relative
+TOL_DECH_TONE, TOL_DECH_BROAD, TOL_WOLA = 0.01, 0.35, 6e-4
+
 # the parallel layer: a (chan, time) mesh of virtual shards of one card
 MESH_CHAN, MESH_TIME = 2, 4
 C_PAR = 64             # sharded_chain's channels; 16 hops of #9 per shard
@@ -1596,6 +1631,21 @@ def parallel_timings(ps) -> tuple[dict, dict]:
     return {"fir_periodogram4096_halo": (ms_k, ms_p, bms, by, None)}, extra
 
 
+def _events_ms(fn, runs: int = 3) -> float:
+    """Median over ``runs`` of one call of fn, CUDA events, after the
+    caller's own first run."""
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(runs):
+        e0.record()
+        fn()
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return float(np.median(times))
+
+
 def sinc_taps64(nc: int, fcut: float, tau: float) -> np.ndarray:
     """Windowed-sinc fractional-delay taps at offset tau, float64, written
     here from the reference's formula (itrp.cc:24-39: the Hann window
@@ -1677,16 +1727,7 @@ def resample_phase(gen, dev, card: str, prof_dir=None) -> dict:
     if not ok:
         raise AssertionError("config 3 golden")
     del ys
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    times = []
-    for _ in range(3):
-        e0.record()
-        run(STEPS_RS)
-        e1.record()
-        torch.cuda.synchronize()
-        times.append(e0.elapsed_time(e1) / STEPS_RS)
-    ms = float(np.median(times))
+    ms = _events_ms(lambda: run(STEPS_RS)) / STEPS_RS
     rate = C_RS * N_RS / ms / 1e3
     print(f"time config3 step (RationalResampler + Fir 256, {C_RS} x {N_RS} "
           f"complex64): {ms:.4f} ms a step, {rate:.1f} input Msamples/s "
@@ -1697,6 +1738,377 @@ def resample_phase(gen, dev, card: str, prof_dir=None) -> dict:
             sf, rr.step(srr, x)[1])}, prof_dir, calls=3)
     return {"ms_per_step": ms, "msamples_per_s": rate, "max_abs_err": err,
             "golden_err": dg, "channels": C_RS, "n": N_RS}
+
+
+def _hann64(n: int) -> np.ndarray:
+    """The periodic Hann window in float64, 0.5 - 0.5 cos(2 pi k / n)."""
+    return 0.5 - 0.5 * np.cos(2 * np.pi * np.arange(n) / n)
+
+
+def _rt_spectrum64(blocks, N: int, navg: int, nsubs: int = 1,
+                   step: int = 0) -> np.ndarray:
+    """The averaged power of RtSpectrum after the given blocks, in float64
+    from its formula: a unit-energy Hann window, |FFT|^2 averaged over a
+    block's frames (of each capture in a sweep), fftshifted, / N; a sweep
+    adds capture i at offset i step and divides by the hits per bin."""
+    w = _hann64(N)
+    w = w * np.sqrt(N / np.sum(w * w))
+    Ns = N + (nsubs - 1) * step
+    hits = np.zeros(Ns)
+    for i in range(nsubs):
+        hits[i * step:i * step + N] += 1
+    avg = np.zeros((blocks[0].shape[0], Ns))
+    for x in blocks:
+        C, n = x.shape
+        X = np.fft.fft(x.reshape(C, n // (nsubs * N), nsubs, N) * w, axis=-1)
+        Psub = np.fft.fftshift(np.mean(np.abs(X) ** 2, axis=1), axes=-1)
+        P = np.zeros((C, Ns))
+        for i in range(nsubs):
+            P[:, i * step:i * step + N] += Psub[:, i]
+        P = P / (np.maximum(hits, 1.0) * N)
+        avg = (1 - 1.0 / navg) * avg + P / navg
+    return avg
+
+
+def spectral_phase(gen, dev, card: str, prof_dir=None) -> dict:
+    """The spectral layer as a user drives it: ``RtSpectrum`` (N NFFT_SP,
+    navg NAVG_SP) over STEPS_SP chained steps of C_SP x N_SP complex64, then
+    the sweep form (nsubs NSUBS_SP, sweep_step SWEEP_SP) on the same blocks;
+    ``czt`` at n = m = N_CZT on a zoomed spiral contour; ``xcorr`` of two
+    N_XC-sample signals; ``periodogram_cqt`` of T_AUDIO s of real audio at
+    FS_AUDIO (fmin FMIN_CQT, fmax FMAX_CQT, the default gamma and ofs).
+    Checks: both spectra of channels 0-3 after steps 0, 1 and the last
+    against float64 numpy from the formula (``_rt_spectrum64``); czt at
+    BINS_REF bins and xcorr at BINS_REF lags against float64 direct sums;
+    periodogram_cqt against the same call on a CPU copy.  No kernel."""
+    from libtsd_tpu_torch.ops import fft as F
+    from libtsd_tpu_torch.ops.corr import xcorr
+    from libtsd_tpu_torch.ops.psd import periodogram_cqt
+    from libtsd_tpu_torch.ops.spectrum import RtSpectrum, SpectrumConfig
+    out = {}
+    blocks = [torch.complex(*torch.randn(2, C_SP, N_SP, generator=gen,
+                                         device=dev))
+              for _ in range(STEPS_SP)]
+    forms = {"plain": (SpectrumConfig(N=NFFT_SP, navg=NAVG_SP), 1, 0),
+             "sweep": (SpectrumConfig(N=NFFT_SP, navg=NAVG_SP,
+                                      nsubs=NSUBS_SP, sweep_step=SWEEP_SP),
+                       NSUBS_SP, SWEEP_SP)}
+    host = [b[:4].cpu().numpy().astype(np.complex128) for b in blocks]
+    for form, (cfg, nsubs, step) in forms.items():
+        sp = RtSpectrum.create(cfg, device=dev)
+
+        def run(sp=sp):
+            st = sp.init()
+            states = []
+            for b in blocks:
+                st, db = sp.step(st, b)
+                states.append(st)
+            return states, db
+
+        states, db = run()
+        torch.cuda.synchronize()
+        if db.shape != (C_SP, cfg.Ns) or not bool(torch.isfinite(db).all()):
+            raise AssertionError(f"RtSpectrum {form}: shape or non-finite")
+        for k in (0, 1, STEPS_SP - 1):
+            ref = _rt_spectrum64(host[:k + 1], NFFT_SP, NAVG_SP, nsubs, step)
+            out[f"rt_{form}_err"] = check(
+                f"spectral RtSpectrum {form} (N {NFFT_SP}, navg {NAVG_SP}, "
+                f"nsubs {nsubs}, sweep_step {step}), step {k}, channels "
+                f"0-3 vs float64 numpy", states[k][:4],
+                torch.as_tensor(ref, device=dev), TOL_SP)
+        run()
+        ms = _events_ms(run) / STEPS_SP
+        rate = C_SP * N_SP / ms / 1e3
+        print(f"time spectral RtSpectrum {form} step ({C_SP} x {N_SP} "
+              f"complex64): {ms:.4f} ms a step, {rate:.1f} input "
+              f"Msamples/s (median of 3 runs of {STEPS_SP} chained steps; "
+              f"{card})")
+        out[f"rt_{form}"] = {"ms_per_step": ms, "msamples_per_s": rate}
+        if prof_dir and form == "plain":
+            profile_windows({"rt_spectrum_step": lambda sp=sp: sp.step(
+                sp.init(), blocks[0])}, prof_dir, calls=3)
+    del blocks
+
+    # czt on a spiral contour: z0 e^{0.3i}, W = e^{-2 pi i 2^-18} (a
+    # quarter-band zoom); X[k] = sum_n x[n] z0^-n W^(n k)
+    x = torch.complex(*torch.randn(2, N_CZT, generator=gen, device=dev))
+    W, z0 = np.exp(-2j * np.pi / (4 * N_CZT)), np.exp(0.3j)
+    X = F.czt(x, N_CZT, W=W, z0=z0)
+    ks = np.linspace(0, N_CZT - 1, BINS_REF).astype(np.int64)
+    xn = x.cpu().numpy().astype(np.complex128)
+    nn = np.arange(N_CZT, dtype=np.int64)
+    xz = xn * np.exp(-0.3j * nn)
+    ref = np.array([np.sum(xz * np.exp(-2j * np.pi * ((nn * k) % (4 * N_CZT))
+                                       / (4 * N_CZT))) for k in ks])
+    out["czt_err"] = check(
+        f"spectral czt n = m = {N_CZT} (z0 e^0.3i, W e^(-2 pi i/{4 * N_CZT}))"
+        f" at {BINS_REF} bins vs the float64 direct sum",
+        torch.view_as_real(X[torch.as_tensor(ks, device=dev)]),
+        torch.view_as_real(torch.as_tensor(ref, device=dev)), TOL_SP)
+    ms = time_ms(lambda: F.czt(x, N_CZT, W=W, z0=z0))
+    print(f"time spectral czt n = m = {N_CZT} complex64: {ms:.4f} ms, "
+          f"{N_CZT / ms / 1e3:.1f} input Msamples/s ({card})")
+    out["czt"] = {"ms": ms, "msamples_per_s": N_CZT / ms / 1e3}
+
+    # xcorr of x and a delayed, noisy copy
+    xa = torch.complex(*torch.randn(2, N_XC, generator=gen, device=dev))
+    ya = 0.5 * torch.roll(xa, 12345) + 0.1 * torch.complex(
+        *torch.randn(2, N_XC, generator=gen, device=dev))
+    lags, c = xcorr(xa, ya)
+    if c.shape != (2 * N_XC - 1,):
+        raise AssertionError(f"xcorr shape {tuple(c.shape)}")
+    # lags with at least half the signals overlapping, and the peak's
+    lk = np.unique(np.r_[np.linspace(-N_XC // 2, N_XC // 2,
+                                     BINS_REF).astype(np.int64), -12345])
+    xh = xa.cpu().numpy().astype(np.complex128)
+    yh = ya.cpu().numpy().astype(np.complex128)
+
+    def lag64(k):        # sum_n x[n] conj(y[n + k]) / overlap
+        if k >= 0:
+            return np.sum(xh[:N_XC - k] * np.conj(yh[k:])) / (N_XC - k)
+        return np.sum(xh[-k:] * np.conj(yh[:N_XC + k])) / (N_XC + k)
+    ref = np.array([lag64(int(k)) for k in lk])
+    got = c[torch.as_tensor(lk + N_XC - 1, device=dev)]
+    out["xcorr_err"] = check(
+        f"spectral xcorr of two {N_XC}-sample signals at {len(lk)} lags "
+        "(overlap >= 1/2, and the peak) vs float64 direct sums",
+        torch.view_as_real(got),
+        torch.view_as_real(torch.as_tensor(ref, device=dev)), TOL_SP)
+    ms = time_ms(lambda: xcorr(xa, ya))
+    print(f"time spectral xcorr 2 x {N_XC} complex64: {ms:.4f} ms, "
+          f"{2 * N_XC / ms / 1e3:.1f} input Msamples/s ({card})")
+    out["xcorr"] = {"ms": ms, "msamples_per_s": 2 * N_XC / ms / 1e3}
+    del x, X, xa, ya, c
+
+    # periodogram_cqt of audio: three tones, a chirp and noise
+    n = int(FS_AUDIO * T_AUDIO)
+    t = torch.arange(n, device=dev, dtype=torch.float64) / FS_AUDIO
+    audio = (0.5 * torch.sin(2 * np.pi * 440.0 * t)
+             + 0.3 * torch.sin(2 * np.pi * 2093.0 * t)
+             + 0.2 * torch.sin(2 * np.pi * 7040.0 * t)
+             + 0.1 * torch.sin(2 * np.pi * (100.0 + 200.0 * t) * t)
+             ).float() + 0.01 * torch.randn(n, generator=gen, device=dev)
+    del t
+    t0 = time.perf_counter()
+    tg, fr, A = periodogram_cqt(audio, FS_AUDIO, FMIN_CQT, FMAX_CQT)
+    torch.cuda.synchronize()
+    s_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tgh, frh, Ah = periodogram_cqt(audio.cpu(), FS_AUDIO, FMIN_CQT, FMAX_CQT)
+    s_cpu = time.perf_counter() - t0
+    if not (np.array_equal(tg, tgh) and np.array_equal(fr, frh)
+            and np.isfinite(A).all()):
+        raise AssertionError("periodogram_cqt: grids or non-finite values")
+    out["cqt_err"] = check(
+        f"spectral periodogram_cqt {T_AUDIO:g} s at {FS_AUDIO:g} Hz "
+        f"({n} samples, {FMIN_CQT:g}-{FMAX_CQT:g} Hz, {A.shape[1]} bins x "
+        f"{A.shape[0]} frames) on the card vs the CPU",
+        torch.as_tensor(A), torch.as_tensor(Ah), TOL_CQT)
+    a4 = int(np.argmin(np.abs(fr - 440.0)))
+    if int(np.argmax(A[A.shape[0] // 2])) not in (a4 - 1, a4, a4 + 1):
+        raise AssertionError("periodogram_cqt: the 440 Hz tone is not the "
+                             "strongest bin")
+    t0 = time.perf_counter()           # a second, warm run
+    periodogram_cqt(audio, FS_AUDIO, FMIN_CQT, FMAX_CQT)
+    ms = 1e3 * min(s_card, time.perf_counter() - t0)
+    print(f"time spectral periodogram_cqt {n} samples: {ms:.1f} ms on the "
+          f"card (host clock, device work and the host interpolation; "
+          f"{n / ms / 1e3:.2f} input Msamples/s; the CPU took "
+          f"{1e3 * s_cpu:.0f} ms; {card})")
+    out["periodogram_cqt"] = {"ms": ms, "msamples_per_s": n / ms / 1e3,
+                              "cpu_ms": 1e3 * s_cpu}
+    return out
+
+
+def rds_phase(dev, card: str, prof_dir=None) -> dict:
+    """RDS as a user decodes it: T_RDS s of broadcast FM IF at FE_RDS made
+    on the card (stereo tones 440 / 1000 Hz, the pilot, 0A groups carrying
+    PS_RDS and 2A groups carrying RT_RDS, repeated; no noise, so nothing is
+    drawn from the seed), ``rds_decode`` on the card.  Checks: the decoded
+    groups are the transmitted sequence, each with no uncorrected block,
+    all but the first (block sync) and the last (cut by the filters'
+    delay) of the complete groups on air; the PS name and radiotext read
+    back; ``rds_baseband`` of the first N_RDS_CPU IF
+    samples on the card against the same call on a CPU copy.  No kernel."""
+    from libtsd_tpu_torch.models import rds as R
+    from libtsd_tpu_torch.models.analog import (_fm_broadcast_front,
+                                                fm_broadcast_multiplex)
+    from libtsd_tpu_torch.ops.signal import cycles
+    pi, pty = 0xB0C1, 10
+    groups = [R.rds_group_0a(pi, pty, s, PS_RDS[2 * s:2 * s + 2])
+              for s in range(4)]
+    groups += [R.rds_group_2a(pi, pty, a, RT_RDS[4 * a:4 * a + 4])
+               for a in range(16)]
+    n = int(FE_RDS * T_RDS)
+    nbits = int(T_RDS * R._BITRATE)
+    reps = -(-nbits // (104 * len(groups)))
+    bits = R.rds_encode_groups(groups * reps)
+    on_air = nbits // 104                    # complete groups in the signal
+    t0 = time.perf_counter()
+    al = 0.3 * torch.sin(2 * np.pi * cycles(440.0 / FE_RDS, n, device=dev))
+    ar = 0.3 * torch.sin(2 * np.pi * cycles(1000.0 / FE_RDS, n, device=dev))
+    x = fm_broadcast_multiplex(al, ar, FE_RDS,
+                               rds=R.rds_subcarrier(bits, FE_RDS, n,
+                                                    device=dev))
+    del al, ar
+    torch.cuda.synchronize()
+    s_make = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = R.rds_decode(x, FE_RDS)
+    s_dec = time.perf_counter() - t0
+    # the decoded groups follow the transmitted sequence: group i is
+    # groups[(j0 + i) % len(groups)], j0 from the first clean group
+    first = next((i for i, g in enumerate(got) if max(g.errors) == 0), None)
+    j0 = None if first is None else next(
+        (j - first for j in range(len(groups))
+         if got[first].blocks == tuple(groups[j])), None)
+    clean = [j0 is not None and min(g.errors) >= 0
+             and g.blocks == tuple(groups[(j0 + i) % len(groups)])
+             for i, g in enumerate(got)]
+    n_ok = clean.index(False) if False in clean else len(clean)
+    good = n_ok >= max(len(got) - 1, on_air - 2)
+    ps, rt = R.rds_station_name(got), R.rds_radiotext(got)
+    print(f"check rds {T_RDS:g} s of FM IF at {FE_RDS / 1e6:g} MHz ({n} "
+          f"complex64): {len(got)} groups decoded, the first {n_ok} the "
+          f"transmitted sequence with no uncorrected block, of {on_air} "
+          f"complete groups on air (tol: all decoded but the last, and at "
+          f"least {on_air - 2}: block sync may take the first group, the "
+          f"filters' delay the last), "
+          f"{sum(e > 0 for g in got for e in g.errors)} blocks corrected, "
+          f"PS {ps!r}, radiotext {rt!r} {'ok' if good else 'FAIL'}")
+    if not good or ps != PS_RDS or rt != RT_RDS.rstrip():
+        raise AssertionError("rds: groups or strings not recovered")
+    # rds_baseband on the card vs the CPU, on the first N_RDS_CPU samples
+    a3, fech2, _ = _fm_broadcast_front(x[:N_RDS_CPU], FE_RDS)
+    yc = R.rds_baseband(a3, fech2)
+    yh = R.rds_baseband(a3.cpu(), fech2)
+    err = check(f"rds rds_baseband of the first {N_RDS_CPU} IF samples "
+                f"({a3.shape[-1]} at {fech2:.1f} Hz) on the card vs the "
+                "CPU", yc, yh.to(dev), TOL_RDS)
+    ms = 1e3 * s_dec
+    print(f"time rds rds_decode {n} complex64 IF samples: {ms:.0f} ms "
+          f"(host clock, one run: front end, pilot PLL, baseband on the "
+          f"card, decode on the host), {n / ms / 1e3:.2f} input "
+          f"Msamples/s; making the IF took {1e3 * s_make:.0f} ms ({card})")
+    if prof_dir:
+        a3p, f2p, _ = _fm_broadcast_front(x[:N_RDS_PROF], FE_RDS)
+        profile_windows({"rds_baseband": lambda: R.rds_baseband(a3p, f2p)},
+                        prof_dir, calls=1)
+    return {"groups": len(got), "in_sequence": n_ok, "on_air": on_air,
+            "decode_ms": ms, "msamples_per_s": n / ms / 1e3,
+            "baseband_err": err}
+
+
+def _channelize64(x: np.ndarray, h: np.ndarray, M: int,
+                  chans) -> np.ndarray:
+    """Channels ``chans`` of the polyphase-FFT bank in float64 numpy, from
+    its definition: y[m, c] = sum_p e^{2 pi i c p / M} sum_j h[j M + p]
+    x[(m - j) M - p], x zero before the stream."""
+    K = len(h) // M
+    m = len(x) // M
+    xp = np.concatenate([np.zeros(M * (K + 1), complex), x])
+    mm, pp = np.arange(m)[:, None], np.arange(M)[None, :]
+    v = np.zeros((m, M), complex)
+    for j in range(K):
+        v += h[j * M + pp] * xp[(mm - j) * M - pp + M * (K + 1)]
+    E = np.exp(2j * np.pi * np.outer(np.arange(M), chans) / M)
+    return v @ E
+
+
+def channelizer_phase(gen, dev, card: str, prof_dir=None) -> dict:
+    """The channelizer as a user streams it: ``Channelizer.create(M_CH)``
+    (K 8) over STEPS_CH chained steps of N_CH complex64; one-shot
+    ``channelize``/``dechannelize`` round trips; the WOLA pair at C_WOLA x
+    N_WOLA.  Checks: channels 0-3 of steps 0-1 against float64 numpy
+    (``_channelize64``, the prototype from the design function), two
+    half-steps against one step, the round trips within the bounds of
+    tests/test_advanced.py.  No kernel."""
+    from libtsd_tpu_torch.models.channelizer import (
+        Channelizer, channelize, dechannelize, wola_analysis,
+        wola_synthesis)
+    from libtsd_tpu_torch.ops.fir_design import fir_lowpass
+    out = {}
+    bank = Channelizer.create(M_CH, device=dev)
+    blocks = [torch.complex(*torch.randn(2, N_CH, generator=gen, device=dev))
+              for _ in range(STEPS_CH)]
+
+    def run():
+        st = bank.init()
+        ys = []
+        for b in blocks:
+            st, y = bank.step(st, b)
+            ys.append(y)
+        return ys
+
+    ys = run()
+    torch.cuda.synchronize()
+    if not all(y.shape == (N_CH // M_CH, M_CH) and bool(torch.isfinite(
+            torch.view_as_real(y)).all()) for y in ys):
+        raise AssertionError("channelizer: output shape or non-finite")
+    h = fir_lowpass(M_CH * 8, 0.5 / M_CH, "hn") * M_CH
+    xs = torch.cat(blocks[:2]).cpu().numpy().astype(np.complex128)
+    ref = _channelize64(xs, np.asarray(h, np.float64), M_CH, [0, 1, 2, 3])
+    got = torch.cat([ys[0][:, :4], ys[1][:, :4]])
+    out["err"] = check(
+        f"channelizer M {M_CH} K 8, steps 0-1 ({N_CH} complex64 each), "
+        "channels 0-3 vs float64 numpy polyphase-FFT",
+        torch.view_as_real(got),
+        torch.view_as_real(torch.as_tensor(ref, device=dev)), TOL_CH)
+    st = bank.init()
+    st, ya = bank.step(st, blocks[0][:N_CH // 2])
+    st, yb = bank.step(st, blocks[0][N_CH // 2:])
+    check("channelizer two half-steps vs one step",
+          torch.view_as_real(torch.cat([ya, yb])),
+          torch.view_as_real(ys[0]), TOL_CH)
+    del ys, ya, yb
+    run()
+    ms = _events_ms(run) / STEPS_CH
+    rate = N_CH / ms / 1e3
+    print(f"time channelizer step (M {M_CH}, K 8, {N_CH} complex64): "
+          f"{ms:.4f} ms a step, {rate:.1f} input Msamples/s (median of 3 "
+          f"runs of {STEPS_CH} chained steps; {card})")
+    out["step"] = {"ms_per_step": ms, "msamples_per_s": rate}
+    if prof_dir:
+        profile_windows({"channelizer_step": lambda: bank.step(
+            bank.init(), blocks[0])}, prof_dir, calls=3)
+    # the critically sampled round trip (tests/test_advanced.py:302-323)
+    n, d = N_CH, 8 * M_CH
+    m = slice(2 * d, n - 3 * d)
+    tone = torch.exp(2j * np.pi * (3 / M_CH) * torch.arange(
+        n, device=dev, dtype=torch.float64)).to(torch.complex64)
+    for name, v, bound in (("channel-centre tone", tone, TOL_DECH_TONE),
+                           ("broadband noise", blocks[1], TOL_DECH_BROAD)):
+        back = dechannelize(channelize(v, M_CH, bank=bank), M_CH, bank=bank)
+        e = (v[:n - d][m] - back[d:][m]).abs().pow(2).mean()
+        err = float(torch.sqrt(e / v[:n - d][m].abs().pow(2).mean()))
+        print(f"check channelizer dechannelize(channelize()) {name}, M "
+              f"{M_CH}: rms_rel_err={err:.3e} tol={bound:g} "
+              f"{'ok' if err < bound else 'FAIL'}")
+        if not err < bound:
+            raise AssertionError("channelizer round trip")
+    del blocks, tone
+    # the WOLA pair (tests/test_advanced.py:326-345)
+    xw = torch.complex(*torch.randn(2, C_WOLA, N_WOLA, generator=gen,
+                                    device=dev))
+    ch = wola_analysis(xw, M_CH)
+    xr = wola_synthesis(ch, M_CH)
+    L = min(xr.shape[-1], N_WOLA)
+    e0 = 16 * M_CH
+    a, b = xw[:, e0:L - e0], xr[:, e0:L - e0]
+    err = float(torch.sqrt((a - b).abs().pow(2).mean()
+                           / a.abs().pow(2).mean()))
+    print(f"check channelizer WOLA round trip C {C_WOLA} M {M_CH} n "
+          f"{N_WOLA}: rms_rel_err={err:.3e} tol={TOL_WOLA:g} "
+          f"{'ok' if err < TOL_WOLA else 'FAIL'}")
+    if not err < TOL_WOLA:
+        raise AssertionError("WOLA round trip")
+    ms = time_ms(lambda: wola_synthesis(wola_analysis(xw, M_CH), M_CH))
+    print(f"time channelizer WOLA round trip C {C_WOLA} M {M_CH} n "
+          f"{N_WOLA}: {ms:.4f} ms, {C_WOLA * N_WOLA / ms / 1e3:.1f} "
+          f"aggregate input Msamples/s ({card})")
+    out["wola"] = {"ms": ms, "msamples_per_s": C_WOLA * N_WOLA / ms / 1e3,
+                   "err": err}
+    return out
 
 
 def profile(mp, out_dir: str) -> None:
@@ -1939,6 +2351,23 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"phase config3: {time.perf_counter() - t_phase:.1f} s")
 
+    # the spectral layer, the channelizer and RDS (no kernel): each runs
+    # with the counts at 0 and prints them after
+    later = {}
+    for name, fn in (("spectral", lambda: spectral_phase(
+                          gen, dev, card, args.profile)),
+                     ("channelizer", lambda: channelizer_phase(
+                         gen, dev, card, args.profile)),
+                     ("rds", lambda: rds_phase(dev, card, args.profile))):
+        t_phase = time.perf_counter()
+        kernels.reset_launches()
+        later[name] = fn()
+        print(f"launches ({name} path, no kernel): "
+              + json.dumps({k: v for k, v in kernels.launches().items()
+                            if v}))
+        torch.cuda.empty_cache()
+        print(f"phase {name}: {time.perf_counter() - t_phase:.1f} s")
+
     print("launches (each path): " + json.dumps(launches))
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
@@ -1978,7 +2407,7 @@ def main() -> int:
                        "fm_step": {"composed_ms": fm_step_ms,
                                    "channels": C_FM, "n": N_FM},
                        "modem": modem, "parallel": par_extra,
-                       "config3": cfg3},
+                       "config3": cfg3, **later},
                       f, indent=1)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,2 +1,2 @@
-from . import (fft, filter_rt, fir_design, iir_design, kernels,  # noqa: F401
-               poly, psd, resample, rng, signal, window)
+from . import (corr, cqt, dwt, fft, filter_rt, fir_design,  # noqa: F401
+               iir_design, kernels, poly, psd, resample, rng, signal, window)

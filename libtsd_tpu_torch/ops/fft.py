@@ -10,11 +10,11 @@ everything else goes to ``torch.fft``.  ``engine="kernel"`` forces the
 kernel wrapper (which takes its plain version for a CPU tensor),
 ``engine="torch"`` forces ``torch.fft``.
 
-``resample_freq`` resamples by zero-padding or truncating the spectrum
-(``torch.fft``, as the JAX package's ``jnp.fft``).
-
-Not ported yet: ``czt``, ``goertzel``, ``goertzel_stream``, ``hadamard``,
-``wht``, ``force_csym`` (see ROADMAP.md).
+``resample_freq`` resamples by zero-padding or truncating the spectrum,
+and ``czt`` runs Bluestein's three transforms, on ``torch.fft``, as the
+JAX package runs them on ``jnp.fft``.  ``goertzel`` and
+``goertzel_stream`` are batched projections, ``wht`` log2(n) butterfly
+passes.
 """
 from __future__ import annotations
 
@@ -28,7 +28,8 @@ from ..config import complex_dtype, device as _device, real_dtype
 from .kernels.fft import NMAX, NMIN, FftPow2
 
 __all__ = ["fft", "ifft", "rfft", "irfft", "fftshift", "ifftshift",
-           "fft_freqs", "next_pow2", "delay_signal", "resample_freq",
+           "fft_freqs", "force_csym", "czt", "goertzel", "goertzel_stream",
+           "hadamard", "wht", "next_pow2", "delay_signal", "resample_freq",
            "ola_complexity", "ola_complexity_optimize"]
 
 ENGINES = ("auto", "kernel", "torch")
@@ -113,8 +114,108 @@ def fft_freqs(n: int, fs: float = 1.0, shifted: bool = True,
     return torch.fft.fftshift(f) if shifted else f
 
 
+def force_csym(X: torch.Tensor) -> torch.Tensor:
+    """Force conjugate symmetry so that ifft(X) is real (parity: force_csym,
+    fourier.hpp): X'[k] = (X[k] + conj(X[-k])) / 2."""
+    Xr = torch.roll(torch.flip(X, dims=(-1,)), 1, dims=-1).conj()
+    return 0.5 * (X + Xr)
+
+
 def next_pow2(n: int) -> int:
     return 1 << (int(n) - 1).bit_length()
+
+
+# ------------------------------------------------------------------- CZT
+
+def czt(x: torch.Tensor, m: Optional[int] = None,
+        W: Optional[complex] = None, z0: complex = 1.0 + 0.0j
+        ) -> torch.Tensor:
+    """Chirp-Z transform along the spiral contour z0 W^-k, k = 0..m-1, by
+    Bluestein's three FFTs (parity: tsd::fourier::czt, fourier.cc:1347-1395,
+    same contour convention).  The defaults give the unnormalised DFT.
+
+    The chirps and the chirp filter's spectrum are made once a call on
+    x's device in float64 (the JAX package makes them in float64 numpy on
+    the host), then rounded to complex64."""
+    n = x.shape[-1]
+    if m is None:
+        m = n
+    if W is None:
+        W = np.exp(-2j * np.pi / m)
+    dev = x.device
+    k = torch.arange(max(n, m), dtype=torch.float64, device=dev)
+    h = torch.exp(-0.5 * k * k * complex(np.log(complex(W))))  # W^(-i^2/2)
+    z0pow = torch.exp(-k[:n] * complex(np.log(complex(z0))))    # z0^-i
+    g = x * (z0pow / h[:n]).to(complex_dtype)
+    # linear convolution of g (length n) with the symmetric chirp over the
+    # lags of outputs 0..m-1: y[kk] = sum_i g[i] h[|kk - i|]
+    L = next_pow2(n + m - 1)
+    hc = torch.zeros(L, dtype=torch.complex128, device=dev)
+    hc[:m] = h[:m]
+    hc[L - (n - 1):] = h[1:n].flip(0)
+    G = torch.fft.fft(g.to(complex_dtype), n=L, dim=-1)
+    y = torch.fft.ifft(G * torch.fft.fft(hc).to(complex_dtype),
+                       dim=-1)[..., :m]
+    return y * (1.0 / h[:m]).to(complex_dtype)
+
+
+# --------------------------------------------------------------- Goertzel
+
+def goertzel(x: torch.Tensor, f: float) -> torch.Tensor:
+    """Normalised power of the single DFT bin at normalised frequency f,
+    2 |X(f)|^2 / (energy n), so that a pure sinusoid at f gives ~1 (parity:
+    tsd::fourier::goertzel, goertzel.cc:7-29).  The linear recursion is
+    evaluated as the direct projection it equals."""
+    n = x.shape[-1]
+    k = torch.arange(n, dtype=real_dtype, device=x.device)
+    X = torch.sum(x * torch.exp(-2j * np.pi * f * k), dim=-1)
+    en = torch.sum(x.abs() ** 2, dim=-1)
+    return 2.0 * X.abs() ** 2 / (en * n + 1e-30)
+
+
+def goertzel_stream(x: torch.Tensor, f: float, R: int) -> torch.Tensor:
+    """One normalised Goertzel value per R-sample block (parity:
+    filtre_goertzel, goertzel.cc:32-79: restart every R samples, normalise
+    by the block's energy), as one batched projection.  The length must be
+    a multiple of R."""
+    n = x.shape[-1]
+    if n % R:
+        raise ValueError(f"goertzel_stream: length {n} is not a multiple "
+                         f"of R={R}")
+    blocks = x.reshape(*x.shape[:-1], n // R, R)
+    k = torch.arange(R, dtype=real_dtype, device=x.device)
+    X = torch.sum(blocks * torch.exp(-2j * np.pi * f * k), dim=-1)
+    en = torch.sum(blocks.abs() ** 2, dim=-1)
+    return 2.0 * X.abs() ** 2 / (en * R + 1e-30)
+
+
+# --------------------------------------------------------------- Hadamard
+
+def hadamard(n: int, device="cuda") -> torch.Tensor:
+    """Hadamard matrix of order n (a power of 2)."""
+    if n & (n - 1):
+        raise ValueError(f"hadamard: n={n} is not a power of 2")
+    H = np.array([[1.0]])
+    while H.shape[0] < n:
+        H = np.block([[H, H], [H, -H]])
+    return torch.as_tensor(H, dtype=real_dtype, device=_device(device))
+
+
+def wht(x: torch.Tensor) -> torch.Tensor:
+    """Fast Walsh-Hadamard transform along the last axis, unnormalised
+    (parity: core/src/fourier/hadamard.cc), in log2(n) butterfly passes."""
+    n = x.shape[-1]
+    if n & (n - 1):
+        raise ValueError(f"wht: length {n} is not a power of 2")
+    lead = x.shape[:-1]
+    y = x
+    h = 1
+    while h < n:
+        y = y.reshape(*lead, n // (2 * h), 2, h)
+        a, b = y[..., 0, :], y[..., 1, :]
+        y = torch.cat([a + b, a - b], dim=-1).reshape(*lead, n)
+        h *= 2
+    return y
 
 
 def delay_signal(x: torch.Tensor, delay) -> torch.Tensor:

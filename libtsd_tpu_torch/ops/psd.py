@@ -1,9 +1,10 @@
 """Power spectral densities (PyTorch), ported from
 ``libtsd_tpu/ops/psd.py``: correlogram, Welch, periodogram/STFT,
-spectrogram.  Orthonormal FFT (``ops.fft``, so power-of-two CUDA frames go
-through the FFT kernel), fftshifted bins, dB where the reference outputs dB.
-
-Not ported yet: ``freq_estim`` and ``periodogram_cqt`` (see ROADMAP.md).
+spectrogram, single-tone frequency estimation and the constant-Q
+time/frequency matrix.  Orthonormal FFT (``ops.fft``, so power-of-two CUDA
+frames go through the FFT kernel), fftshifted bins, dB where the reference
+outputs dB.  ``freq_estim`` takes ``torch.fft`` directly, as the JAX
+package takes ``jnp.fft``.
 """
 from __future__ import annotations
 
@@ -13,11 +14,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..config import device as _device, real_dtype
+from ..config import complex_dtype, device as _device, real_dtype
 from .fft import fft as _fft, fftshift
 from .window import window as _window
 
-__all__ = ["psd_freqs", "psd", "psd_welch", "periodogram_dft", "spectrogram"]
+__all__ = ["psd_freqs", "psd", "psd_welch", "periodogram_dft", "spectrogram",
+           "freq_estim", "periodogram_cqt"]
 
 
 def _win(fen: str, n: int, device) -> torch.Tensor:
@@ -50,8 +52,10 @@ def psd(x: torch.Tensor, fen: str = "hn") -> Tuple[torch.Tensor, torch.Tensor]:
     return psd_freqs(n, device=x.device), 10.0 * torch.log10(S + 1e-30)
 
 
-def _segments(x: torch.Tensor, N: int, starts) -> torch.Tensor:
-    return torch.stack([x[..., int(i):int(i) + N] for i in starts])
+def _segments(x: torch.Tensor, N: int, hop: int, count: int) -> torch.Tensor:
+    """The first ``count`` length-N segments at starts 0, hop, 2 hop, ...:
+    one strided view (..., count, N), no copy."""
+    return x.unfold(-1, N, hop)[..., :count, :]
 
 
 def psd_welch(x: torch.Tensor, N: int,
@@ -62,11 +66,11 @@ def psd_welch(x: torch.Tensor, N: int,
     if n < N:
         x = F.pad(x, (0, N - n))
         n = N
-    starts = np.arange(0, n - N, N // 2)
-    if len(starts) == 0:
-        starts = np.array([0])
-    S = torch.sum(_power(_fft(_segments(x, N, starts)
-                              * _win(fen, N, x.device))), dim=0)
+    # starts 0, N/2, ... below n - N (the start n - N itself is left out,
+    # as in the reference); [0] when n == N
+    nseg = max(len(range(0, n - N, N // 2)), 1)
+    S = torch.sum(_power(_fft(_segments(x, N, N // 2, nseg)
+                              * _win(fen, N, x.device))), dim=-2)
     return psd_freqs(N, device=x.device), 10.0 * torch.log10(S + 1e-30)
 
 
@@ -86,5 +90,63 @@ def spectrogram(x: torch.Tensor, N: int, overlap: float = 0.5,
         x = F.pad(x, (0, N - n))
         n = N
     hop = max(1, int(N * (1 - overlap)))
-    starts = np.arange(0, n - N + 1, hop)
-    return _power(_fft(_segments(x, N, starts) * _win(fen, N, x.device)))
+    nseg = len(range(0, n - N + 1, hop))
+    P = _power(_fft(_segments(x, N, hop, nseg) * _win(fen, N, x.device)))
+    return torch.movedim(P, -2, 0)      # frames first, as in JAX
+
+
+def freq_estim(x: torch.Tensor, method: str = "candan2") -> torch.Tensor:
+    """Single-tone frequency estimate of a 1-D signal, normalised, in
+    [-1/2, 1/2) (parity: freqestim, freqestim.cc:95-150):
+
+    * ``fft``: the arg-max bin;
+    * ``quadratic``: parabolic interpolation on |X|;
+    * ``candan2``: Candan's 2013 refined estimator (the default).
+    """
+    if method not in ("fft", "quadratic", "candan2"):
+        raise ValueError(f"unknown method {method!r}")
+    n = x.shape[-1]
+    X = torch.fft.fft(x.to(complex_dtype), dim=-1)
+    a = X.abs()
+    k = torch.argmax(a)
+    if method == "fft":
+        f = k.to(real_dtype) / n
+    elif method == "quadratic":
+        X1, X2, X3 = a[(k - 1) % n], a[k], a[(k + 1) % n]
+        p = 0.5 * (X3 - X1) / (2 * X2 - X3 - X1)
+        f = (k + p) / n
+    else:
+        X1, X2, X3 = X[(k - 1) % n], X[k], X[(k + 1) % n]
+        p = ((X1 - X3) / (2.0 * X2 - X3 - X1)).real
+        c = np.float32(np.tan(np.pi / n) / (np.pi / n))
+        p = torch.atan(p * float(c) * np.pi / n) / (np.pi / n)
+        f = (k + p) / n
+    return torch.remainder(f + 0.5, 1.0) - 0.5      # wrap to [-1/2, 1/2)
+
+
+def periodogram_cqt(x: torch.Tensor, fs: float, fmin: float, fmax: float,
+                    gamma: float = 2 ** (1 / 12), ofs: float = 0.0):
+    """Constant-Q time/frequency matrix (parity: periodogramme_cqt,
+    cqt.cc:461-476, fourier.hpp:958-977): the streaming decimated CQT of
+    a real signal on its device, its irregular per-bin outputs copied to
+    the host once and resampled onto a regular grid at output rate
+    ``ofs`` (default fs / 256).  Returns numpy (t_seconds, freqs_hz,
+    A[nframes, nbins])."""
+    from .cqt import cqt_interpolate, cqt_stream, cqt_stream_kernel
+    if ofs <= 0:
+        ofs = fs / 256.0
+    if x.is_complex():
+        # the CQT bank analyses real (audio) signals; the real plane of IQ
+        # data would give wrong magnitudes silently
+        raise ValueError(
+            "periodogram_cqt expects a real signal; for complex IQ use "
+            "ops.psd.psd/spectrogram or run the planes separately")
+    K = cqt_stream_kernel(fmin / fs, fmax / fs, gamma)
+    hop = K.N // 2
+    npad = (-x.shape[-1]) % hop
+    if npad:
+        x = F.pad(x, (0, npad))
+    times, mags, valid = cqt_stream(x, K)
+    hop_out = max(1, int(round(fs / ofs)))
+    grid, freqs, A = cqt_interpolate(times, mags, valid, K, hop_out)
+    return grid / fs, freqs * fs, A

@@ -22,7 +22,8 @@ __all__ = ["fir_from_jax", "waveform_from_jax", "demod_sb_from_jax",
            "receiver_state_from_jax", "iir_frame_from_jax", "sos_from_jax",
            "iir_cascade_from_jax", "fm_chain_from_jax",
            "fm_receiver_from_jax", "fm_receiver_state_from_jax",
-           "qam16_modem_from_jax"]
+           "qam16_modem_from_jax", "channelizer_from_jax",
+           "channelizer_state_from_jax", "rt_spectrum_from_jax"]
 
 # the JAX package's batched engines -> the port's
 _ENGINES = {"auto": "auto", "xla": "auto", "pallas": "cuda",
@@ -287,3 +288,35 @@ def qam16_modem_from_jax(m, device="cuda"):
                          DecDemodConfig(**dataclasses.asdict(d.cfg)))
     return Qam16Modem(wf, mod, fir_from_jax(m.mf, device), cr, pll, dd2,
                       osf=int(m.osf), rx_mode=str(m.rx_mode))
+
+
+# ------------------------------------------ the spectral and channelizer slice
+
+
+def channelizer_from_jax(src, device="cuda"):
+    """The port's ``Channelizer`` from a JAX one, or from its leaves
+    ``{"P", "M"}``: the (M, K) branch taps and M."""
+    from ..models.channelizer import Channelizer
+    return Channelizer(_tensor(_field(src, "P"), _device(device),
+                               torch.float32), int(_field(src, "M")))
+
+
+def channelizer_state_from_jax(state: Mapping, device="cuda") -> dict:
+    """A JAX ``Channelizer`` state, whose ``hist`` (2, M, K-1) and ``raw``
+    (2, M-1) are re/im planes, as the port's complex64 ``hist`` (M, K-1)
+    and ``raw`` (M-1,)."""
+    device = _device(device)
+    return {k: from_ri(np.array(state[k])).to(device)
+            for k in ("hist", "raw")}
+
+
+def rt_spectrum_from_jax(src, device="cuda"):
+    """The port's ``RtSpectrum`` from a JAX one, or from its leaves
+    ``{"win", "mask", "cnt", "cfg"}``: window, mask, hit counts and the
+    ``SpectrumConfig`` (its fields copied)."""
+    from ..ops.spectrum import RtSpectrum, SpectrumConfig
+    device = _device(device)
+    cfg = _field(src, "cfg")
+    return RtSpectrum(*(_tensor(_field(src, k), device, torch.float32)
+                        for k in ("win", "mask", "cnt")),
+                      SpectrumConfig(**dataclasses.asdict(cfg)))

@@ -977,3 +977,89 @@ def test_sharded_chain_across_cards(dev):
         for a, b in zip(k, p):
             assert a.device == b.device
             assert rel(a, b) < TOL and bin_err(a, b) < TOL_BIN
+
+
+# ------------------------------------- the spectral, RDS and channelizer
+# paths: no kernel of their own; each is held on the card to the same port
+# call on CPU copies of its inputs (fp32 on both, other FFT and summation
+# orders: TOL of the peak)
+
+def _cpu_pair(dev, shape, seed, cplx=True):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(*shape, generator=g, device=dev)
+    if cplx:
+        x = torch.complex(x, torch.randn(*shape, generator=g, device=dev))
+    return x, x.cpu()
+
+
+@pytest.mark.parametrize("cfg", [dict(N=4096, navg=4),
+                                 dict(N=4096, navg=4, nsubs=8,
+                                      sweep_step=2048, mask_hf=16,
+                                      mask_bf=8)])
+def test_rt_spectrum_on_card_matches_cpu(dev, cfg):
+    from libtsd_tpu_torch.ops.spectrum import RtSpectrum, SpectrumConfig
+    c = SpectrumConfig(**cfg)
+    bc = RtSpectrum.create(c, device=dev)
+    bh = RtSpectrum.create(c, device="cpu")
+    sc, sh = bc.init(), bh.init()
+    for step in range(3):
+        x, xh = _cpu_pair(dev, (4, 2 * c.nsubs * c.N), step)
+        sc, dc = bc.step(sc, x)
+        sh, dh = bh.step(sh, xh)
+        assert dc.device.type == "cuda"
+        assert rel(sc, sh.to(dev)) < TOL
+
+
+def test_cqt_stream_on_card_matches_cpu(dev):
+    from libtsd_tpu_torch.ops.cqt import cqt_stream, cqt_stream_kernel
+    K = cqt_stream_kernel(55 / 8000, 3000 / 8000)
+    x, xh = _cpu_pair(dev, (K.N * 6,), 1, cplx=False)
+    tc, mc, vc = cqt_stream(x, K)
+    th, mh, vh = cqt_stream(xh, K)
+    assert mc.device.type == "cuda"
+    assert torch.equal(tc.cpu(), th) and torch.equal(vc.cpu(), vh)
+    assert rel(mc, mh.to(dev)) < TOL
+
+
+def test_channelizer_step_on_card_matches_cpu(dev):
+    from libtsd_tpu_torch.models.channelizer import Channelizer
+    bc = Channelizer.create(256, device=dev)
+    bh = Channelizer.create(256, device="cpu")
+    sc, sh = bc.init(), bh.init()
+    for step in range(3):
+        x, xh = _cpu_pair(dev, (256 * 512,), step)
+        sc, yc = bc.step(sc, x)
+        sh, yh = bh.step(sh, xh)
+        assert yc.device.type == "cuda"
+        assert rel(yc, yh.to(dev)) < TOL
+        assert rel(sc["hist"], sh["hist"].to(dev)) < TOL
+
+
+def test_rds_baseband_on_card_matches_cpu(dev):
+    from libtsd_tpu_torch.models.rds import (rds_baseband, rds_encode_groups,
+                                             rds_group_0a, rds_subcarrier)
+    from libtsd_tpu_torch.ops.signal import cycles
+    fs = 1.024e6 / 7
+    bits = rds_encode_groups([rds_group_0a(0xF201, 4, s, "AB")
+                              for s in range(4)])
+    n = 24576
+    mpx = (0.1 * torch.cos(2 * np.pi * cycles(19e3 / fs, n, device=dev))
+           + rds_subcarrier(bits, fs, n, device=dev))
+    yc = rds_baseband(mpx, fs)
+    yh = rds_baseband(mpx.cpu(), fs)
+    assert yc.device.type == "cuda"
+    assert rel(yc, yh.to(dev)) < TOL
+
+
+def test_czt_and_xcorr_on_card_match_cpu(dev):
+    from libtsd_tpu_torch.ops.corr import xcorr
+    x, xh = _cpu_pair(dev, (3, 4096), 2)
+    W, z0 = np.exp(-2j * np.pi * 0.0013), np.exp(0.3j)
+    assert rel(F.czt(x, 3000, W=W, z0=z0),
+               F.czt(xh, 3000, W=W, z0=z0).to(dev)) < TOL
+    y, yh = _cpu_pair(dev, (4096,), 3)
+    lc, cc = xcorr(x[0], y, 2000)
+    lh, ch = xcorr(xh[0], yh, 2000)
+    assert torch.equal(lc.cpu(), lh)
+    ov = (torch.clamp(4096 - lh.abs(), min=1.0) / 4096).to(dev)
+    assert rel(cc * ov, ch.to(dev) * ov) < TOL

@@ -120,6 +120,22 @@ def test_psd_family_matches_jax(fn, args, cplx):
         assert rel(rt.numpy(), np.asarray(rj)) < 1e-5
 
 
+@pytest.mark.parametrize("fn", ["psd_welch", "spectrogram"])
+@pytest.mark.parametrize("n", [512, 513, 256])     # 2N, 2N + 1, N
+@pytest.mark.parametrize("cplx", [False, True])
+def test_psd_segment_starts_match_jax(fn, n, cplx):
+    """The segments are one strided view: at n = 2N the start n - N that
+    the view would add is left out (as np.arange(0, n - N, N // 2) leaves
+    it out), at n = N one segment remains."""
+    x = _signal((2, n), cplx, 5)
+    rt = getattr(Pt, fn)(torch.as_tensor(x), 256)
+    rj = getattr(Pj, fn)(jnp.asarray(x), 256)
+    if fn == "psd_welch":
+        rt, rj = _lin(rt[1].numpy()), _lin(rj[1])
+    assert rt.shape == tuple(rj.shape)
+    assert rel(rt, np.asarray(rj)) < 1e-5
+
+
 # ---------------------------------------- config 2 goldens, through the port
 
 def test_cfg2_fft_golden_through_port():
