@@ -55,7 +55,13 @@ Builds the port's CUDA kernels from ``libtsd_tpu_torch/csrc`` into
   k, 147/160) then the 256-tap ``Fir``, 8 chained steps (no kernel: the
   hot path is one fp32 contraction); two steps of channels 0-3 against
   float64 numpy from the sinc formula and the same taps, ``resample`` on
-  the reference's cfg3 golden, input Msamples/s and ms a step.
+  the reference's cfg3 golden, input Msamples/s and ms a step;
+* paths with no kernel, each with the launch counts zeroed and printed:
+  the spectral layer, the channelizer and RDS (``spectral_phase``,
+  ``channelizer_phase``, ``rds_phase``), the protocol decoders (an ADS-B
+  monitor of 64 receivers, POCSAG at three bauds: ``protocols_phase``),
+  the impaired link in front of a BER sweep (``link_phase``) and the
+  estimators (DOA, MUSIC, Kalman, EKF, IMU: ``estimation_phase``).
 
 Every kernel is timed beside its plain version (CUDA events, median of 5
 runs after a warm-up, a run being as many back-to-back calls as fill 2 ms,
@@ -196,6 +202,58 @@ TOL_CH = 1e-5          # vs float64 numpy polyphase-FFT, of the peak
 # broadband noise through dechannelize(channelize()), rms relative; the
 # WOLA pair, rms relative
 TOL_DECH_TONE, TOL_DECH_BROAD, TOL_WOLA = 0.01, 0.35, 6e-4
+
+# the protocol decoders (examples/protocols_demo.py at monitoring width):
+# an ADS-B monitor of C_ADSB receivers at 2 MS/s, AdsbConfig() defaults
+# (fe 2e6, Ne 65,536, threshold 0.55, max_frames 8), BLOCKS_ADSB blocks a
+# receiver; magnitude noise ADSB_NOISE |N(0, 1)|, DF17 squitters at
+# ADSB_AMP, at most ADSB_PER_BLOCK a block, each wholly inside its block
+C_ADSB, BLOCKS_ADSB = 64, 16
+ADSB_NOISE, ADSB_AMP, ADSB_PER_BLOCK = 0.02, 0.8, 4
+ADSB_PUBLISHED = ("8D4840D6202CC371C32CE0576098",   # ident KLM1023
+                  "8D40621D58C382D690C8AC2863A7",   # position, even
+                  "8D40621D58C386435CC412692AD6")   # position, odd
+CPR_FIX = (52.2572, 3.91937)   # the published pair's position
+TOL_CPR = 2e-3                 # degrees (tests/test_protocols.py:296)
+# POCSAG: fe 48 kHz, fi 3 kHz, IF AWGN POC_NOISE per real dimension
+# (examples/protocols_demo.py:69-76); one T_POC s transmission of pages
+# at each baud
+FE_POC, FI_POC, POC_NOISE, T_POC = 48000.0, 3000.0, 0.25, 20.0
+# and K_GAP pages at 1200 baud as separate transmissions (each with its
+# preamble), GAP_POC s of carrier off between them
+K_GAP, GAP_POC = 8, 0.5
+
+# the impaired link in front of a BER sweep, at the QAM phase's working
+# set: C_LINK x N_LINK complex64 QAM-16 (osf 4) from the port's modulator
+C_LINK, N_LINK = 4096, 8192
+EBN0_CLEAN, EBN0_NOISY = 200.0, 12.0
+PN_DB_HZ = -30.0               # phase noise of the noisy pass, dBc/Hz
+TOL_ECP = 1e-5                 # the deterministic path vs float64, of peak
+TOL_NOISE_VAR = 0.01           # measured noise variance vs the formula's
+N_FADE, FD_FADE, RICE_K = 1 << 22, 0.01, 4.0
+TOL_FADE = 0.02                # Rayleigh power, Rice LOS share
+N_FHSS, SLOT_FHSS, NF_FHSS = 1 << 23, 1024, 46337
+TOL_FHSS = 1e-6                # phase vs float64's exact phase, in cycles
+TOL_MATZNER = 1e-4             # vs a float64 numpy recursion, of the peak
+N_LMS = 4096                   # QPSK symbols through a 3-tap ISI channel
+LMS_SKIP = 1000                # decision errors counted after this symbol
+TOL_LMS = 1e-3                 # card vs CPU (tests/test_golden_ref4.py:92)
+
+# the estimators: examples/doa_demo.py at its own size, MUSIC over 2^16
+# samples, Kalman / EKF / IMU loops
+M_DOA, D_DOA, L_DOA, T_DOA, NF_DOA = 16, 0.5, 10, 400, 2048
+DOA_DEG = (70.0, 110.0)
+TOL_DOA_DEG = 1.0              # doa_demo.py:81
+TOL_DOA_SPEC = 1e-4            # card vs CPU, of the peak
+N_PSDSS, M_PSDSS = 1 << 16, 16
+N_KALMAN, N_EKF, N_IMU = 4096, 1000, 800
+TOL_KALMAN = 1e-4              # vs float64 numpy, of the peak
+TOL_EKF_STEP = 1e-4            # one step from the card's state, CPU vs card
+TOL_IMU = 1e-4                 # card vs CPU, of the peak
+# tail attitude error of every draw: test_advanced.py:64's bound, set for
+# a model with 10x less gyro noise; this one reads ~0.002-0.004 (PERF.md)
+TOL_IMU_TRACK = 0.05
+K_IMU = 8                      # IMU draws, filtered at once (torch.func.vmap)
 
 # the parallel layer: a (chan, time) mesh of virtual shards of one card
 MESH_CHAN, MESH_TIME = 2, 4
@@ -2111,6 +2169,715 @@ def channelizer_phase(gen, dev, card: str, prof_dir=None) -> dict:
     return out
 
 
+def _hexbits(h: str) -> np.ndarray:
+    v = int(h, 16)
+    n = 4 * len(h)
+    return np.array([(v >> (n - 1 - i)) & 1 for i in range(n)], np.int8)
+
+
+def adsb_frames(rng, Ne: int, frame_len: int) -> dict:
+    """The squitters on air, {(receiver, block): [(start in block, 112
+    bits), ...]}: at most ADSB_PER_BLOCK a block, each in its own quarter
+    block and wholly inside it; the published frames first in receiver
+    0's block 0, random DF17 payloads with their CRC-24 elsewhere (the
+    host encoders, as in the JAX package)."""
+    from libtsd_tpu_torch.models.adsb import _crc_bits_np
+    q = Ne // ADSB_PER_BLOCK
+    out = {}
+    for c in range(C_ADSB):
+        for b in range(BLOCKS_ADSB):
+            first = (c, b) == (0, 0)
+            k = (ADSB_PER_BLOCK if first
+                 else int(rng.integers(0, ADSB_PER_BLOCK + 1)))
+            fr = []
+            for j, slot in enumerate(sorted(rng.choice(ADSB_PER_BLOCK, k,
+                                                       replace=False))):
+                p = int(slot) * q + int(rng.integers(0, q - frame_len - 64))
+                if first and j < len(ADSB_PUBLISHED):
+                    bits = _hexbits(ADSB_PUBLISHED[j])
+                else:
+                    bits = rng.integers(0, 2, 112).astype(np.int8)
+                    bits[:5] = (1, 0, 0, 0, 1)             # DF17
+                    bits[88:] = _crc_bits_np(bits[:88])    # CRC-24 parity
+                fr.append((p, bits))
+            out[(c, b)] = fr
+    return out
+
+
+def pocsag_transmission(baud: int, seconds: float, rng):
+    """One POCSAG transmission of `seconds` carrying pages to several RICs,
+    alphanumeric and numeric (a 576-bit preamble, then batches back to back:
+    each address codeword in its RIC's frame, its message codewords after
+    it, an idle word between pages), as a paging transmitter sends its
+    queue.  Returns (bits, [(ric, function, text)], batches)."""
+    from libtsd_tpu_torch.models import pocsag as P
+    texts = ["CALL DISPATCH 555-0117", "UNIT 12 RESPOND TO STATION 4",
+             "THE QUICK BROWN FOX JUMPS OVER THE LAZY DOG 0123456789", "OK"]
+    nums = ["5551234", "911", "0123 456-789"]
+    nb = (int(seconds * baud) - 576) // 544
+    cws, pages, i = [], [], 0
+    while True:
+        ric = int(rng.integers(8, 1 << 21))
+        num = i % 3 == 2
+        text = nums[i % 3] if num else texts[i % 4]
+        fn = int(rng.integers(0, 3)) if num else 3
+        one = P.pocsag_encode(ric, fn, text, numeric=num, npreamble=0)
+        words = [int("".join(map(str, w)), 2)
+                 for w in one[32:].reshape(-1, 32)]
+        first = 2 * (ric & 7)
+        add = []
+        while ((len(cws) + len(add)) % 16) // 2 != (ric & 7):
+            add.append(P.IDLE)
+        add += [words[first]] + [w for w in words[first + 1:] if w >> 31]
+        add.append(P.IDLE)
+        if len(cws) + len(add) > 16 * nb:
+            break
+        cws += add
+        pages.append((ric, fn, text))
+        i += 1
+    cws += [P.IDLE] * (16 * nb - len(cws))
+    out = [np.tile([1, 0], 288).astype(np.int8)]
+    for b in range(nb):
+        out.append(P._word_bits(P.FSC))
+        out += [P._word_bits(w) for w in cws[16 * b:16 * (b + 1)]]
+    return np.concatenate(out), pages, nb
+
+
+def pocsag_gapped(baud: int, rng):
+    """K_GAP pages as separate transmissions (a preamble each), GAP_POC s
+    of carrier off after each, as an occasional pager hears them.  Returns
+    (IF samples at FE_POC, [(ric, function, text)], batches)."""
+    from libtsd_tpu_torch.models import pocsag as P
+    texts = ["CALL DISPATCH 555-0117", "UNIT 12 RESPOND TO STATION 4", "OK"]
+    parts, pages, nb = [], [], 0
+    for i in range(K_GAP):
+        ric = int(rng.integers(8, 1 << 21))
+        bits = P.pocsag_encode(ric, 3, texts[i % 3])
+        nb += (len(bits) - 576) // 544
+        parts.append(P.pocsag_waveform(bits, FE_POC, baud, fi=FI_POC))
+        parts.append(np.zeros(int(GAP_POC * FE_POC), np.complex64))
+        pages.append((ric, 3, texts[i % 3]))
+    return np.concatenate(parts), pages, nb
+
+
+def page_counts(got, pages):
+    """(exact, truncated, spurious, lost): decoded pages equal to a sent
+    one, with a sent (RIC, function) and another text, with an unsent
+    (RIC, function); sent pages not decoded exactly."""
+    sent = {(r, f): t for r, f, t in pages}
+    exact = sum(p in pages for p in got)
+    trunc = sum((r, f) in sent and t != sent[(r, f)] for r, f, t in got)
+    spur = sum((r, f) not in sent for r, f, _ in got)
+    return exact, trunc, spur, len(pages) - exact
+
+
+def pocsag_card_vs_cpu(cfg, z, baud) -> tuple:
+    """Decode z on the card and on a CPU copy: the card's pages and baud,
+    and whether both decoders agree exactly (pages, baud, and the scan at
+    that baud: batch positions, bits, codeword flags)."""
+    from libtsd_tpu_torch.models import pocsag as P
+    pages, scans = [], []
+    for dev in (z.device, torch.device("cpu")):
+        pdec = P.PocsagDecoder(cfg, device=dev)
+        msgs, got = pdec.decode(z.to(dev), return_baud=True)
+        pages.append(([(m.ric, m.function, m.text) for m in msgs], got))
+        r = pdec.scan(pdec._front(z.to(dev)), baud)
+        scans.append([t.cpu() for t in (r.position, r.bits, r.cw_ok,
+                                        r.valid)])
+    same = pages[0] == pages[1] and all(
+        torch.equal(a, b) for a, b in zip(*scans))
+    return pages[0][0], pages[0][1], same
+
+
+def protocols_phase(seed: int, gen, dev, card: str) -> dict:
+    """The protocol decoders as a monitoring station runs them.
+
+    ADS-B: C_ADSB receivers x BLOCKS_ADSB blocks of 65,536 magnitude
+    samples made on the card (noise, then DF17 squitters at known
+    positions: ``adsb_frames``), ``AdsbDecoder.decode_block`` on (C_ADSB,
+    65,536) a call.  Checks: every frame found once at its position with
+    its bits and CRC, no other candidate with a good CRC; ``AdsbStream``
+    over receiver 0 in the demo's odd-size pushes returns every frame of
+    that receiver once at its absolute position; the published even/odd
+    pair gives the published CPR fix.
+
+    POCSAG: one T_POC s transmission of pages at each of 512, 1200 and 2400
+    baud (``pocsag_transmission``), decoded on the card (1200 with auto
+    baud).  Checks: noise-free, every page's RIC, function and text exact
+    and nothing else decoded; with IF AWGN POC_NOISE added on the card, the
+    card's decode equal to a CPU copy's (pages, baud, the scan's positions,
+    bits and flags), 1200 detected; the pages lost to the sync pick at the
+    plateau's first index (the JAX decoder's, ROADMAP §3) printed.  Then
+    ``pocsag_gapped`` at the same noise, card against CPU, its spurious
+    pages printed (a known fault of both packages, ROADMAP §3).  No
+    kernel."""
+    from libtsd_tpu_torch.models import pocsag as P
+    from libtsd_tpu_torch.models.adsb import (AdsbConfig, AdsbDecoder,
+                                              AdsbStream, _field,
+                                              adsb_waveform, cpr_global)
+    rng = np.random.default_rng(seed)
+    out = {}
+    cfg = AdsbConfig()
+    dec = AdsbDecoder(cfg, device=dev)
+    Ne, fl = cfg.Ne, dec._frame_len
+    frames = adsb_frames(rng, Ne, fl)
+    nframes = sum(len(v) for v in frames.values())
+    t0 = time.perf_counter()
+    x = ADSB_NOISE * torch.randn(C_ADSB, BLOCKS_ADSB * Ne, generator=gen,
+                                 device=dev).abs()
+    rows, cols, wfs = [], [], []
+    for (c, b), fr in frames.items():
+        for p, bits in fr:
+            rows.append(c)
+            cols.append(b * Ne + p)
+            wfs.append(adsb_waveform(bits, osf=cfg.osf))
+    W = torch.as_tensor(np.stack(wfs), device=dev)
+    r = torch.as_tensor(rows, device=dev)[:, None].expand(-1, fl)
+    k = (torch.as_tensor(cols, device=dev)[:, None]
+         + torch.arange(fl, device=dev))
+    x.index_put_((r, k), ADSB_AMP * W, accumulate=True)
+    torch.cuda.synchronize()
+    s_make = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = [dec.decode_block(x[:, b * Ne:(b + 1) * Ne])
+           for b in range(BLOCKS_ADSB)]
+    host = [torch.cat([d.position.reshape(C_ADSB, -1).float(),
+                       d.crc_ok.float(), d.valid.float(),
+                       d.bits.reshape(C_ADSB, -1).float()], 1).cpu().numpy()
+            for d in res]
+    s_dec = time.perf_counter() - t0
+    K = cfg.max_frames
+    missing = wrong = false_ok = noise_cand = 0
+    for b, h in enumerate(host):
+        pos, ok, val = h[:, :K].astype(int), h[:, K:2 * K] > 0, \
+            h[:, 2 * K:3 * K] > 0
+        bits = h[:, 3 * K:].astype(np.int8).reshape(C_ADSB, K, 112)
+        for c in range(C_ADSB):
+            got = {int(pos[c, j]): bits[c, j] for j in range(K)
+                   if val[c, j] and ok[c, j]}
+            want = dict(frames[(c, b)])
+            missing += sum(p not in got for p in want)
+            wrong += sum(p in got and not np.array_equal(got[p], want[p])
+                         for p in want)
+            false_ok += sum(p not in want for p in got)
+            noise_cand += int((val[c] & ~ok[c]).sum())
+    good = missing == wrong == false_ok == 0
+    print(f"check protocols ADS-B monitor {C_ADSB} receivers x "
+          f"{BLOCKS_ADSB} blocks of {Ne} (fe {cfg.fe:g}, threshold "
+          f"{cfg.threshold}, max_frames {K}), {nframes} DF17 squitters: "
+          f"{missing} missed, {wrong} with wrong bits, {false_ok} other "
+          f"candidates with a good CRC (tol: 0, 0, 0); {noise_cand} "
+          f"candidates rejected by the CRC {'ok' if good else 'FAIL'}")
+    if not good:
+        raise AssertionError("ADS-B monitor")
+    xb = x[:, :Ne]
+    ms = time_ms(lambda: dec.decode_block(xb))
+    rate = C_ADSB * Ne / ms / 1e3
+    print(f"time protocols ADS-B decode_block ({C_ADSB}, {Ne}) float32: "
+          f"{ms:.4f} ms a call, {rate:.1f} input Msamples/s; all "
+          f"{BLOCKS_ADSB} blocks with their host reads {1e3 * s_dec:.0f} "
+          f"ms (host clock); making the input {1e3 * s_make:.0f} ms ({card})")
+    out["adsb"] = {"frames": nframes, "ms_per_call": ms,
+                   "msamples_per_s": rate, "blocks_ms": 1e3 * s_dec}
+    # the streaming sink over receiver 0, pushed as an SDR delivers
+    x0 = x[0].cpu().numpy()
+    del x, res, xb
+    st = AdsbStream(cfg, device=dev)
+    got, i = [], 0
+    t0 = time.perf_counter()
+    while i < len(x0):
+        n = int(min(len(x0) - i, 3000 + 500 * (i % 3)))
+        got += st.push(x0[i:i + n])
+        i += n
+    got += st.flush()
+    s_stream = time.perf_counter() - t0
+    want = {b * Ne + p: bits for b in range(BLOCKS_ADSB)
+            for p, bits in frames[(0, b)]}
+    gp = sorted(f.position for f in got)
+    ok = (gp == sorted(want) and all(np.array_equal(f.bits, want[f.position])
+                                     for f in got))
+    print(f"check protocols AdsbStream receiver 0, {len(x0)} samples in "
+          f"pushes of 3000-4000: {len(got)} frames, each once at its "
+          f"absolute position with its bits, of {len(want)} on air "
+          f"{'ok' if ok else 'FAIL'}; {1e3 * s_stream:.0f} ms (host "
+          f"clock, {len(x0) / s_stream / 1e6:.2f} Msamples/s)")
+    if not ok:
+        raise AssertionError("AdsbStream")
+    cpr = {}
+    for f in got:
+        if 9 <= _field(f.bits, 32, 37) <= 18 and \
+                _field(f.bits, 8, 32) == 0x40621D:
+            cpr[int(f.bits[53])] = (_field(f.bits, 54, 71),
+                                    _field(f.bits, 71, 88))
+    fix = (cpr_global(*cpr[0], *cpr[1], newest_odd=False)
+           if len(cpr) == 2 else None)
+    ident = any("ident KLM1023" in f.text for f in got)
+    ok = (fix is not None and ident
+          and max(abs(fix[0] - CPR_FIX[0]), abs(fix[1] - CPR_FIX[1]))
+          < TOL_CPR)
+    print(f"check protocols CPR fix of the published even/odd pair: "
+          f"{fix}, published {CPR_FIX}, tol={TOL_CPR:g} deg; ident "
+          f"KLM1023 read {ident} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("ADS-B CPR fix or ident")
+    out["adsb"]["stream_ms"] = 1e3 * s_stream
+    # POCSAG at each baud, 1200 with auto detection
+    out["pocsag"] = {}
+    for baud in (512, 1200, 2400):
+        bits, pages, nb = pocsag_transmission(baud, T_POC, rng)
+        z = torch.as_tensor(P.pocsag_waveform(bits, FE_POC, baud,
+                                              fi=FI_POC), device=dev)
+        auto = baud == 1200
+        cfg = P.PocsagConfig(fe=FE_POC, fi=FI_POC,
+                             debit=-1 if auto else baud, max_batches=nb + 8)
+        pdec = P.PocsagDecoder(cfg, device=dev)
+        clean, got_clean = pdec.decode(z, return_baud=True)
+        clean = [(m.ric, m.function, m.text) for m in clean]
+        w = torch.randn(2, z.shape[0], generator=gen, device=dev)
+        z = z + POC_NOISE * torch.complex(w[0], w[1])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pdec.decode(z, return_baud=True)
+        s = time.perf_counter() - t0
+        gm, got_baud, same = pocsag_card_vs_cpu(cfg, z, baud)
+        n_ok, n_tr, n_sp, n_lost = page_counts(gm, pages)
+        n_clean = sum(a == b for a, b in zip(clean, pages))
+        ok = (clean == pages and got_clean == baud and same
+              and got_baud == baud)
+        print(f"check protocols POCSAG {baud} baud{' (auto)' if auto else ''}"
+              f", {z.shape[0] / FE_POC:.2f} s at fe {FE_POC:g} fi "
+              f"{FI_POC:g} ({nb} batches, max_batches {nb + 8}), "
+              f"{len(pages)} pages: noise-free {n_clean} of {len(pages)} "
+              f"exact (tol: all, nothing else); IF AWGN "
+              f"{POC_NOISE}: card {'=' if same else '!='} CPU copy (tol: "
+              f"pages, baud, scan positions, bits, flags exact), baud "
+              f"{got_baud} {'ok' if ok else 'FAIL'}; {n_ok} exact, {n_tr} "
+              f"truncated, {n_sp} spurious, {n_lost} not read exactly (the "
+              f"plateau pick, ROADMAP §3); decode {1e3 * s:.0f} ms (host "
+              f"clock, {z.shape[0] / s / 1e6:.2f} Msamples/s)")
+        if not ok:
+            raise AssertionError(f"POCSAG {baud}")
+        out["pocsag"][baud] = {"pages": len(pages), "batches": nb,
+                               "decode_ms": 1e3 * s, "exact": n_ok,
+                               "truncated": n_tr, "spurious": n_sp}
+    # separate transmissions with carrier-off gaps
+    zg, pages, nb = pocsag_gapped(1200, rng)
+    z = torch.as_tensor(zg, device=dev)
+    w = torch.randn(2, z.shape[0], generator=gen, device=dev)
+    z = z + POC_NOISE * torch.complex(w[0], w[1])
+    cfg = P.PocsagConfig(fe=FE_POC, fi=FI_POC, debit=1200,
+                         max_batches=nb + 8)
+    gm, _, same = pocsag_card_vs_cpu(cfg, z, 1200)
+    n_ok, n_tr, n_sp, n_lost = page_counts(gm, pages)
+    print(f"check protocols POCSAG 1200 baud, {K_GAP} transmissions with "
+          f"{GAP_POC:g} s carrier-off gaps, {z.shape[0] / FE_POC:.2f} s, IF "
+          f"AWGN {POC_NOISE} ({nb} batches, max_batches {nb + 8}): card "
+          f"{'=' if same else '!='} CPU copy (tol: exact) "
+          f"{'ok' if same else 'FAIL'}; {n_ok} of {len(pages)} exact, {n_tr} "
+          f"truncated, {n_sp} spurious pages (the gaps' noise passes the "
+          f"sync gate, ROADMAP §3)")
+    if not same:
+        raise AssertionError("POCSAG gapped")
+    out["pocsag"]["gapped"] = {"pages": len(pages), "exact": n_ok,
+                               "truncated": n_tr, "spurious": n_sp}
+    return out
+
+
+def link_phase(gen, dev, card: str) -> dict:
+    """The channel in front of a BER sweep, at the QAM phase's working set:
+    C_LINK x N_LINK complex64 QAM-16 from the port's modulator.
+
+    Checks: ``propagation_channel`` at EBN0_CLEAN (frequency and phase
+    offset, fractional clock delay) against float64 numpy of the same
+    formula on channels 0-7; at EBN0_NOISY with phase noise, the noise
+    variance against the formula's (the common phase walk estimated over
+    the channels); ``dispersive_channel``: Rayleigh power and envelope,
+    Rice LOS share, the Doppler band; ``fhss_modulate`` at N_FHSS against
+    float64's exact phase; ``MatznerTracker`` over the noisy output against
+    a float64 numpy recursion; ``LmsEqualizer`` (DFE, DEC) on N_LMS QPSK
+    symbols through a 3-tap channel against the same steps on a CPU copy,
+    with no decision error after LMS_SKIP.  No kernel."""
+    from libtsd_tpu_torch.models import waveform as W
+    from libtsd_tpu_torch.models.bitstream import randbits
+    from libtsd_tpu_torch.models.channel import (ChannelConfig,
+                                                 dispersive_channel,
+                                                 propagation_channel)
+    from libtsd_tpu_torch.models.equalizer import LmsEqualizer
+    from libtsd_tpu_torch.models.modulator import ModConfig, Modulator
+    from libtsd_tpu_torch.models.snr import MatznerTracker
+    from libtsd_tpu_torch.models.spread import fhss_modulate
+    from libtsd_tpu_torch.ops.signal import cycles
+    out = {}
+    wf = W.wf_qam(16, W.PulseShape.rcs(0.25), device=dev)
+    mod = Modulator.create(ModConfig(wf=wf, fe=4.0, fsymb=1.0), device=dev)
+    total = C_LINK * N_LINK
+    x, _ = mod.modulate(randbits(gen, total))
+    x = x[:total].reshape(C_LINK, N_LINK)
+    # the deterministic path at Eb/N0 200 dB (sigma ~ 1e-10)
+    cfg = ChannelConfig(fe=1.0, fsymb=0.25, fbit=1.0, Eb_N0=EBN0_CLEAN,
+                        freq_offset=0.01, phase_offset=0.7, clock_delay=0.37)
+    y = propagation_channel(gen, x, cfg)
+    torch.cuda.synchronize()
+    ms = time_ms(lambda: propagation_channel(gen, x, cfg), reps=3)
+    x8 = x[:8].cpu().numpy().astype(np.complex128)
+    z = x8 * np.exp(1j * (0.7 + 2 * np.pi * 0.01 * np.arange(N_LINK)))
+    zp = np.zeros((8, 2 * N_LINK), complex)
+    h0 = N_LINK // 2
+    zp[:, h0:h0 + N_LINK] = z
+    kf = np.fft.fftfreq(2 * N_LINK)
+    ref = np.fft.ifft(np.fft.fft(zp) * np.exp(-2j * np.pi * kf * 0.37))[
+        :, h0:h0 + N_LINK]
+    out["ecp_err"] = check(
+        f"link propagation_channel ({C_LINK}, {N_LINK}) QAM-16 at Eb/N0 "
+        f"{EBN0_CLEAN:g} dB, freq 0.01, phase 0.7, clock delay 0.37: "
+        "channels 0-7 vs float64 numpy", torch.view_as_real(y[:8]),
+        torch.view_as_real(torch.as_tensor(ref, device=dev)), TOL_ECP)
+    print(f"time link propagation_channel ({C_LINK}, {N_LINK}): {ms:.4f} ms,"
+          f" {total / ms / 1e3:.1f} Msamples/s ({card})")
+    out["ecp_ms"] = ms
+    del y, zp, ref
+    # the noisy pass with phase noise: the walk is common to the channels
+    cfg2 = ChannelConfig(fe=1.0, fsymb=0.25, fbit=1.0, Eb_N0=EBN0_NOISY,
+                         freq_offset=0.01, phase_offset=0.7,
+                         phase_noise_db_hz=PN_DB_HZ)
+    y2 = propagation_channel(gen, x, cfg2)
+    xr = x * torch.exp(1j * (0.7 + 2 * np.pi * cycles(0.01, N_LINK,
+                                                      device=dev)))
+    walk = torch.sum(y2 * xr.conj(), dim=0)
+    walk = walk / walk.abs()
+    res = y2 - xr * walk
+    var = float(res.abs().pow(2).mean())
+    level2 = float(x.abs().pow(2).mean())
+    var_f = 2 * level2 * 0.5 * (cfg2.fe / cfg2.fbit) / 10 ** (EBN0_NOISY / 10)
+    step = torch.angle(walk[1:] * walk[:-1].conj())
+    pn_f = np.sqrt(10 ** (PN_DB_HZ / 10) * cfg2.fe)
+    ok = abs(var / var_f - 1) < TOL_NOISE_VAR
+    print(f"check link propagation_channel at Eb/N0 {EBN0_NOISY:g} dB, phase "
+          f"noise {PN_DB_HZ:g} dBc/Hz: noise variance {var:.6e} vs the "
+          f"formula's {var_f:.6e} (rel {var / var_f - 1:+.2e}, tol "
+          f"{TOL_NOISE_VAR:g}); phase steps std {float(step.std()):.5f} "
+          f"rad vs {pn_f:.5f} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("link noise variance")
+    out["noise_var_rel"] = var / var_f - 1
+    del res, xr, walk
+    # Rayleigh and Rice fading
+    one = torch.ones(N_FADE, dtype=torch.complex64, device=dev)
+    h = dispersive_channel(gen, one, FD_FADE, 1.0)
+    p2 = float(h.abs().pow(2).mean())
+    kurt = float(h.abs().pow(4).mean()) / p2 ** 2
+    H = torch.fft.fft(h).abs().pow(2)
+    f = torch.fft.fftfreq(N_FADE, device=dev).abs()
+    leak = float(H[f > 1.05 * FD_FADE].sum() / H.sum())
+    hr = dispersive_channel(gen, one, FD_FADE, 1.0, rice_factor=RICE_K)
+    los = float(hr.mean().abs().pow(2) / hr.abs().pow(2).mean())
+    los_f = RICE_K / (RICE_K + 1)
+    ok = (abs(p2 - 1) < TOL_FADE and abs(kurt - 2) < 0.1
+          and leak < 1e-6 and abs(los / los_f - 1) < TOL_FADE)
+    print(f"check link dispersive_channel n {N_FADE} fd {FD_FADE}: Rayleigh "
+          f"power {p2:.6f} (tol 1 +- {TOL_FADE}), E|h|^4/E|h|^2^2 "
+          f"{kurt:.4f} (2 +- 0.1), energy beyond 1.05 fd {leak:.2e} (tol "
+          f"1e-6); Rice K {RICE_K:g} LOS share {los:.5f} vs {los_f:.5f} "
+          f"(rel tol {TOL_FADE}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("link fading statistics")
+    del one, h, hr, H, f
+    # FHSS with the exact int32 phase at a length a float32 ramp loses
+    hops = torch.randint(0, NF_FHSS, (97,), generator=gen, device=dev)
+    hop = hops.cpu().numpy().astype(np.int64)
+    ones = torch.ones(N_FHSS, dtype=torch.complex64, device=dev)
+    yf = fhss_modulate(ones, hops, SLOT_FHSS, NF_FHSS)
+    cyc = (torch.angle(yf).double() / (2 * np.pi)).cpu().numpy()
+    kk = np.arange(N_FHSS, dtype=np.int64)
+    hs = np.repeat(hop[np.arange(N_FHSS // SLOT_FHSS) % len(hop)],
+                   SLOT_FHSS).astype(np.int64)
+    exact = ((hs * kk) % NF_FHSS) / NF_FHSS
+    d = np.abs((cyc - exact + 0.5) % 1.0 - 0.5).max()
+    naive = np.abs(((hs / NF_FHSS).astype(np.float32) * kk.astype(
+        np.float32) % 1.0 - exact + 0.5) % 1.0 - 0.5).max()
+    ok = d < TOL_FHSS
+    print(f"check link fhss_modulate n {N_FHSS}, {NF_FHSS} frequencies: phase "
+          f"vs float64 exact max {d:.3e} cycles, tol={TOL_FHSS:g} (a float32 "
+          f"f*k ramp: {naive:.3e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("FHSS phase")
+    del ones, yf
+    # Matzner over the whole noisy output
+    tr = MatznerTracker(0.1, clamp=True, device=dev)
+    _, (S, N) = tr.step(tr.init(), y2)
+    ms = time_ms(lambda: tr.step(tr.init(), y2), reps=3)
+    a2 = y2.abs().pow(2).double().cpu().numpy()
+    e2 = np.zeros(C_LINK)
+    e4 = np.zeros(C_LINK)
+    E2 = np.empty_like(a2)
+    E4 = np.empty_like(a2)
+    for i in range(N_LINK):
+        e2 = 0.9 * e2 + 0.1 * a2[:, i]
+        e4 = 0.9 * e4 + 0.1 * a2[:, i] ** 2
+        E2[:, i], E4[:, i] = e2, e4
+    S2_64 = np.maximum(2 * E2 * E2 - E4, 0.0)
+    S, N = S.double(), N.double()
+    err = max(check("link MatznerTracker(clamp) S^2 = max(2 e2^2 - e4, 0) "
+                    f"over ({C_LINK}, {N_LINK}) vs float64 numpy",
+                    S * S, torch.as_tensor(S2_64, device=dev), TOL_MATZNER),
+              check("link MatznerTracker S + N = e2 vs float64 numpy",
+                    S + N, torch.as_tensor(E2, device=dev), TOL_MATZNER))
+    out["matzner_err"] = err
+    print(f"time link MatznerTracker ({C_LINK}, {N_LINK}): {ms:.4f} ms, "
+          f"{total / ms / 1e3:.1f} Msamples/s ({card})")
+    del y2, S, N, a2, E2, E4, S2_64
+    # the DFE on one channel of QPSK through a 3-tap ISI channel
+    wq = W.wf_qpsk(W.PulseShape.nrz(), device=dev)
+    idx = torch.randint(0, 4, (N_LMS,), generator=gen, device=dev)
+    sym = wq.symbols[idx]
+    isi = torch.as_tensor([1.0, 0.35 - 0.2j, 0.12j], dtype=torch.complex64,
+                          device=dev)
+    xi = (isi[0] * sym + isi[1] * torch.cat([sym[:1] * 0, sym[:-1]])
+          + isi[2] * torch.cat([sym[:2] * 0, sym[:-2]]))
+    wn = torch.randn(2, N_LMS, generator=gen, device=dev) * 0.02
+    xi = xi + torch.complex(wn[0], wn[1])
+    kw = dict(structure="dfe", errf="dec", alpha=0.01, N1=11, N2=7)
+    eq = LmsEqualizer(wq, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, (ye, _, _) = eq.step(eq.init(), xi)
+    torch.cuda.synchronize()
+    s_lms = time.perf_counter() - t0
+    eqh = LmsEqualizer(W.wf_qpsk(W.PulseShape.nrz(), device="cpu"), **kw)
+    t0 = time.perf_counter()
+    _, (yh, _, _) = eqh.step(eqh.init(), xi.cpu())
+    s_lms_cpu = time.perf_counter() - t0
+    dlms = float((ye.cpu() - yh).abs().max())
+    syms = wq.symbols
+    dec = syms[torch.argmin((ye[:, None] - syms).abs(), dim=1)]
+    delay = kw["N1"] // 2
+    nerr = int((dec[LMS_SKIP + delay:] - sym[LMS_SKIP:N_LMS - delay]).abs()
+               .gt(1e-3).sum())
+    ok = dlms < TOL_LMS and nerr == 0
+    print(f"check link LmsEqualizer DFE DEC N1 11 N2 7, {N_LMS} QPSK symbols"
+          f" through [1, 0.35-0.2j, 0.12j]: card vs CPU max |dy| {dlms:.3e} "
+          f"tol={TOL_LMS:g}; {nerr} decision errors after symbol {LMS_SKIP} "
+          f"(tol 0) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("LMS equalizer")
+    print(f"time link LmsEqualizer step: {1e3 * s_lms / N_LMS:.4f} ms a "
+          f"symbol on the card, {1e3 * s_lms_cpu / N_LMS:.4f} on one CPU "
+          f"copy (host clock, a Python loop of device ops; {card})")
+    out["lms_ms_per_symbol"] = 1e3 * s_lms / N_LMS
+    out["lms_cpu_ms_per_symbol"] = 1e3 * s_lms_cpu / N_LMS
+    return out
+
+
+def estimation_phase(seed: int, gen, dev, card: str) -> dict:
+    """The estimators: examples/doa_demo.py's two scenes at its own size,
+    made on the card; MUSIC over N_PSDSS samples; a Kalman filter over
+    N_KALMAN steps, the Kitagawa EKF over N_EKF, the IMU EKF over N_IMU.
+    Checks: smoothed MUSIC within TOL_DOA_DEG of both sources, the demo's
+    MDL counts, the spectra on the card against a CPU copy; the Kalman
+    filter against float64 numpy; EKF steps from the card's states on a
+    CPU copy; the IMU filter on K_IMU draws at once, against a CPU copy,
+    tracking the attitude (tests/test_advanced.py:64's bound) and beating
+    dead reckoning (tests/test_advanced.py:85's comparison, of the mean
+    tail error over the draws).  No kernel."""
+    from libtsd_tpu_torch.models import doa as D
+    from libtsd_tpu_torch.models import imu as I
+    from libtsd_tpu_torch.models import kalman as KF
+    from libtsd_tpu_torch.models.stats import (mdl_source_count,
+                                               psd_subspace,
+                                               subspace_spectrum)
+    from libtsd_tpu_torch.ops.filter_rt import _fp32_matmul
+    from libtsd_tpu_torch.ops.rng import randcn
+    from libtsd_tpu_torch.ops.signal import top_k_stable
+    out = {}
+    k = torch.arange(M_DOA, device=dev)
+
+    def steer(deg):
+        return torch.exp(2j * np.pi * D_DOA * np.cos(np.deg2rad(deg)) * k
+                         ).to(torch.complex64)
+
+    for coherent in (False, True):
+        name = "coherent" if coherent else "incoherent"
+        c1, c2 = randcn(gen, T_DOA), randcn(gen, T_DOA)
+        if coherent:
+            a = steer(DOA_DEG[0]) + 0.8 * np.exp(0.7j) * steer(DOA_DEG[1])
+            X = a[:, None] * c1[None]
+        else:
+            X = (steer(DOA_DEG[0])[:, None] * c1[None]
+                 + steer(DOA_DEG[1])[:, None] * c2[None])
+        X = X + 0.1 * randcn(gen, M_DOA, T_DOA)
+        with _fp32_matmul():
+            R = X @ X.conj().T / T_DOA
+        Rs = D.spatial_smoothing(R, L_DOA)
+        t0 = time.perf_counter()
+        ang = D.musicdoa_1d(Rs, D_DOA, 2, Nf=NF_DOA)
+        torch.cuda.synchronize()
+        s_music = time.perf_counter() - t0
+        deg = np.sort(np.rad2deg(ang.cpu().numpy()))
+        counts = (mdl_source_count(R, T_DOA)[0],
+                  mdl_source_count(Rs, T_DOA)[0])
+        want = (1, 2) if coherent else (2, 2)
+        err = np.abs(deg - np.asarray(DOA_DEG)).max()
+        same = all(torch.equal(f(Rx, D_DOA, 2, Nf=NF_DOA).cpu(),
+                               f(Rx.cpu(), D_DOA, 2, Nf=NF_DOA))
+                   for f in (D.musicdoa_1d, D.capondoa_1d)
+                   for Rx in (R, Rs))
+        ok = err < TOL_DOA_DEG and counts == want and same
+        print(f"check estimation DOA {name} scene (M {M_DOA}, d {D_DOA}, L "
+              f"{L_DOA}, T {T_DOA}, Nf {NF_DOA}): smoothed MUSIC {deg} deg, "
+              f"max err {err:.3f} (tol {TOL_DOA_DEG:g}); MDL raw/smoothed "
+              f"{counts} (want {want}); MUSIC and Capon angles on the card "
+              f"= the CPU copy's: {same} {'ok' if ok else 'FAIL'}; MUSIC "
+              f"{1e3 * s_music:.1f} ms (host clock)")
+        if not ok:
+            raise AssertionError(f"DOA {name}")
+        for Rx, tag in ((R, "raw"), (Rs, "smoothed")):
+            check(f"estimation capon_spectrum {name} {tag} Nf {NF_DOA}, "
+                  "card vs CPU", D.capon_spectrum(Rx, D_DOA, NF_DOA)[1],
+                  D.capon_spectrum(Rx.cpu(), D_DOA, NF_DOA)[1].to(dev),
+                  TOL_DOA_SPEC)
+        sc = subspace_spectrum(Rs, 2, NF_DOA)[1].double()
+        sh = subspace_spectrum(Rs.cpu(), 2, NF_DOA)[1].double().to(dev)
+        check(f"estimation MUSIC subspace_spectrum {name} smoothed: noise "
+              "projection 10^(-dB/10), card vs CPU", 10 ** (-sc / 10),
+              10 ** (-sh / 10), TOL_DOA_SPEC)
+    # the line spectrum of three tones
+    kk = torch.arange(N_PSDSS, device=dev, dtype=torch.float64)
+    xs = (torch.exp(2j * np.pi * 0.1 * kk)
+          + 0.5 * torch.exp(-2j * np.pi * 0.23 * kk)
+          + 0.3 * torch.exp(2j * np.pi * 0.31 * kk)).to(torch.complex64)
+    xs = xs + 0.3 * randcn(gen, N_PSDSS)
+    t0 = time.perf_counter()
+    grid, sp = psd_subspace(xs, 3, NF_DOA, M_PSDSS)
+    torch.cuda.synchronize()
+    s_ps = time.perf_counter() - t0
+    _, sph = psd_subspace(xs.cpu(), 3, NF_DOA, M_PSDSS)
+    check(f"estimation psd_subspace {N_PSDSS} samples, m {M_PSDSS}, Nf "
+          f"{NF_DOA}: noise projection, card vs CPU",
+          10 ** (-sp.double() / 10), 10 ** (-sph.double().to(dev) / 10),
+          TOL_DOA_SPEC)
+    peak = (sp > torch.roll(sp, 1)) & (sp >= torch.roll(sp, -1))
+    top = np.sort(grid[top_k_stable(torch.where(peak, sp, sp.min()), 3)[1]]
+                  .cpu().numpy())
+    want = np.array([-0.31, -0.1, 0.23])
+    ok = np.abs(top - want).max() <= 1.0 / NF_DOA
+    print(f"check estimation psd_subspace: its three highest peaks at "
+          f"{top} (the tones at 0.1, -0.23, 0.31 mirrored by the "
+          f"reference's conjugate xcorr: {want} +- 1 bin) "
+          f"{'ok' if ok else 'FAIL'}; {1e3 * s_ps:.1f} ms (host clock)")
+    if not ok:
+        raise AssertionError("psd_subspace peak")
+    # Kalman over a random walk, against float64 numpy
+    q, rr = 0.01, 1.0
+    walk = torch.cumsum(np.sqrt(q) * torch.randn(N_KALMAN, generator=gen,
+                                                 device=dev), 0)
+    ys = (walk + np.sqrt(rr) * torch.randn(N_KALMAN, generator=gen,
+                                           device=dev))[:, None]
+    ssm = KF.ssm_random_walk(q, rr)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    xk, _ = KF.kalman_filter(ssm, ys)
+    torch.cuda.synchronize()
+    s_k = time.perf_counter() - t0
+    yh = ys[:, 0].double().cpu().numpy()
+    x64, P64, ref = 0.0, 1.0, np.empty(N_KALMAN)
+    for i in range(N_KALMAN):
+        Pp = P64 + q
+        g = Pp / (Pp + rr)
+        x64 = x64 + g * (yh[i] - x64)
+        P64 = (1 - g) * Pp
+        ref[i] = x64
+    out["kalman_err"] = check(
+        f"estimation kalman_filter random walk {N_KALMAN} steps vs float64 "
+        "numpy", xk[:, 0], torch.as_tensor(ref, device=dev), TOL_KALMAN)
+    # the Kitagawa EKF: observations from the host's seeded numpy
+    rng = np.random.default_rng(seed)
+    xt, yk = 0.1, []
+    for i in range(N_EKF):
+        xt = (0.5 * xt + 25 * xt / (1 + xt * xt) + 8 * np.cos(1.2 * i)
+              + np.sqrt(10) * rng.standard_normal())
+        yk.append(xt * xt / 20 + rng.standard_normal())
+    yk = torch.as_tensor(np.asarray(yk, np.float32), device=dev)
+    f, g = KF.kitagawa_model()
+    Q, Rm, x0 = np.diag([10.0, 0.0]), np.eye(1), np.array([0.1, 0.0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    xe, Pe = KF.ekf_filter(f, g, Q, Rm, yk, x0=x0)
+    torch.cuda.synchronize()
+    s_e = time.perf_counter() - t0
+    xe_h, Pe_h, yk_h = xe.cpu(), Pe.cpu(), yk.cpu()
+    worst = 0.0
+    for i in range(50, N_EKF, 50):
+        a, _ = KF.ekf_filter(f, g, Q, Rm, yk_h[i:i + 1], x0=xe_h[i - 1],
+                             P0=Pe_h[i - 1])
+        worst = max(worst, float(((a[0] - xe_h[i]).abs()
+                                  / xe_h.abs().amax(0)).max()))
+    xfull, _ = KF.ekf_filter(f, g, Q, Rm, yk_h, x0=x0)
+    drift = float(((xfull - xe_h).abs() / xe_h.abs().amax(0)).max())
+    ok = worst < TOL_EKF_STEP
+    print(f"check estimation ekf_filter Kitagawa {N_EKF} steps: one CPU step"
+          f" from the card's state at every 50th step vs the card's next "
+          f"state, max {worst:.3e} of each component's peak, tol="
+          f"{TOL_EKF_STEP:g} {'ok' if ok else 'FAIL'} (the whole CPU "
+          f"trajectory drifts {drift:.3e} from the card's: this EKF "
+          f"amplifies last-bit differences)")
+    if not ok:
+        raise AssertionError("EKF")
+    # the IMU EKF (tests/test_advanced.py:67-85's model and gates) on K_IMU
+    # draws: one draw's dead reckoning can beat the filter by luck (its
+    # random walk wanders back), so the comparison is of the mean over them
+    m = I.ImuModel(dt=0.01, gyro_noise=0.02, accel_noise=0.05,
+                   mag_noise=0.05)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sims = [I.imu_simulate(m, gen, N_IMU) for _ in range(K_IMU)]
+    torch.cuda.synchronize()
+    s_sim = (time.perf_counter() - t0) / K_IMU
+    qs, gyro, obs = (torch.stack(v) for v in zip(*sims))
+    t0 = time.perf_counter()
+    qh = torch.func.vmap(lambda g, o: I.imu_ekf(m, g, o))(gyro, obs)
+    torch.cuda.synchronize()
+    s_imu = time.perf_counter() - t0
+    qc = I.imu_ekf(m, gyro[0].cpu(), obs[0].cpu())
+    out["imu_err"] = check(f"estimation imu_ekf {N_IMU} steps, {K_IMU} draws"
+                           f" at once on the card vs draw 0 alone on the CPU",
+                           qh[0], qc.to(dev), TOL_IMU)
+    # dead reckoning on the host: each draw's gyro integrated alone
+    fv = torch.func.vmap(m.f)
+    gh = gyro.cpu()
+    q = torch.as_tensor([1.0, 0, 0, 0]).repeat(K_IMU, 1)
+    dr = []
+    for i in range(N_IMU):
+        q = fv(q, gh[:, i])
+        dr.append(q)
+    dr = torch.stack(dr, 1)
+
+    def qerr(a):
+        t = qs.cpu()
+        d = torch.minimum((t - a).norm(dim=-1), (t + a).norm(dim=-1))
+        return d[:, N_IMU // 2:].mean(dim=1).double().numpy()
+    e_ekf, e_dr = qerr(qh.cpu()), qerr(dr)
+    ok = e_ekf.max() < TOL_IMU_TRACK and e_ekf.mean() < e_dr.mean()
+    print(f"check estimation imu_ekf mean attitude error over steps "
+          f"{N_IMU // 2}-{N_IMU}, {K_IMU} draws: EKF {e_ekf.mean():.6f} "
+          f"(worst draw {e_ekf.max():.6f}, tol={TOL_IMU_TRACK:g}) against "
+          f"dead reckoning {e_dr.mean():.6f} (tol: below it), ratio "
+          f"{e_ekf.mean() / e_dr.mean():.4f} {'ok' if ok else 'FAIL'}; per "
+          f"draw {' '.join(f'{r:.3f}' for r in e_ekf / e_dr)}, EKF better on "
+          f"{int((e_ekf < e_dr).sum())} of {K_IMU} (tests/test_advanced.py:85"
+          f" asks one draw for under 0.5)")
+    if not ok:
+        raise AssertionError("IMU EKF tracking")
+    out["imu_track"] = {"ekf": e_ekf.tolist(), "dead_reckoning": e_dr.tolist()}
+    per = {"kalman": 1e3 * s_k / N_KALMAN, "ekf": 1e3 * s_e / N_EKF,
+           "imu_simulate": 1e3 * s_sim / N_IMU,
+           f"imu_ekf ({K_IMU} draws at once)": 1e3 * s_imu / N_IMU}
+    print("time estimation loops, ms a step (host clock, Python loops of "
+          "device ops): " + ", ".join(f"{k} {v:.4f}" for k, v in per.items())
+          + f" ({card})")
+    out["ms_per_step"] = per
+    return out
+
+
 def profile(mp, out_dir: str) -> None:
     """Optional phase: torch.profiler over 5 back-to-back calls of the
     fused int16/2 chain (with G's checked taps cached, as a caller gets
@@ -2358,7 +3125,12 @@ def main() -> int:
                           gen, dev, card, args.profile)),
                      ("channelizer", lambda: channelizer_phase(
                          gen, dev, card, args.profile)),
-                     ("rds", lambda: rds_phase(dev, card, args.profile))):
+                     ("rds", lambda: rds_phase(dev, card, args.profile)),
+                     ("protocols", lambda: protocols_phase(
+                         args.seed, gen, dev, card)),
+                     ("link", lambda: link_phase(gen, dev, card)),
+                     ("estimation", lambda: estimation_phase(
+                         args.seed, gen, dev, card))):
         t_phase = time.perf_counter()
         kernels.reset_launches()
         later[name] = fn()

@@ -37,6 +37,19 @@ def device(dev="cuda") -> torch.device:
     return dev
 
 
+_resolve = device
+
+
+def as_tensor(a, dtype=None, device="cuda") -> torch.Tensor:
+    """A tensor stays on its device (cast to ``dtype``); other input (an
+    array, a list, a number) goes to ``device``, the card unless the caller
+    names another (through :func:`device`, which raises without a card)."""
+    if isinstance(a, torch.Tensor):
+        return a if dtype is None else a.to(dtype)
+    t = torch.as_tensor(np.asarray(a), device=_resolve(device))
+    return t if dtype is None else t.to(dtype)
+
+
 def to_ri(x) -> torch.Tensor:
     """Pack a complex array (numpy or tensor) into real (2, ...) float32
     planes."""

@@ -26,18 +26,23 @@ import numpy as np
 import torch
 
 from ..block import tree_flatten
-from ..config import complex_dtype, real_dtype
+from ..config import complex_dtype, device as _device, real_dtype
 from ..utils.monitor import Monitor
 from .streamio import Rebuffer
 
 __all__ = ["StreamRunner"]
 
 
-def _block_device(block) -> torch.device:
+def _block_device(block, device=None) -> torch.device:
+    """The device a block runs on: ``device`` when given, else that of its
+    first buffer or parameter, else its ``device`` attribute, else the card
+    (``config.device``, which raises without one)."""
+    if device is not None:
+        return _device(device)
     for t in list(block.buffers()) + list(block.parameters()):
         return t.device
     dev = getattr(block, "device", None)
-    return torch.device(dev) if dev is not None else torch.device("cpu")
+    return _device(dev if dev is not None else "cuda")
 
 
 class StreamRunner:
@@ -53,11 +58,14 @@ class StreamRunner:
                 them for ``run``.
     complex_in: whether the source samples are complex.
     depth:      the most device steps in flight (2 = double buffering).
+    device:     where the blocks are staged (default: the device of the
+                block's first tensor, else its ``device`` attribute, else
+                the card; a block with neither raises without a card).
     """
 
     def __init__(self, block, block_len: int,
                  sink: Optional[Callable] = None, complex_in: bool = True,
-                 depth: int = 2):
+                 depth: int = 2, device=None):
         self.block = block
         self.block_len = int(block_len)
         self.sink = sink
@@ -66,7 +74,7 @@ class StreamRunner:
         if self.depth < 1:
             raise ValueError(f"depth must be >= 1, got {depth}")
         self.monitor = Monitor("stream_runner")
-        self.device = _block_device(block)
+        self.device = _block_device(block, device)
         self._cuda = self.device.type == "cuda"
         dt = complex_dtype if self.complex_in else real_dtype
         # one pinned staging buffer per block in flight: block k uses

@@ -26,7 +26,7 @@ __all__ = [
     "diff", "cumsum", "unwrap_phase",
     "db2mag", "mag2db", "db2pow", "pow2db",
     "wrap_2pi", "wrap_pm_pi",
-    "downsample", "upsample", "zero_pad", "rotate_vec",
+    "downsample", "upsample", "zero_pad", "rotate_vec", "top_k_stable",
     "find", "find_first", "find_last", "find_first_local_max",
     "length_match", "sample_hold", "trange",
     "sinc", "NCO", "nco_phase", "sliding_frames",
@@ -352,3 +352,13 @@ def sliding_frames(x: torch.Tensor, width: int, hop: int,
     if need > x.shape[-1]:
         x = F.pad(x, (0, need - x.shape[-1]))
     return x[..., :need].unfold(-1, width, hop)[..., :nframes, :]
+
+
+def top_k_stable(x: torch.Tensor, k: int):
+    """(values, indices) of the k largest entries along the last axis,
+    largest first and the lower index first among equals, as
+    ``jax.lax.top_k`` orders them (``torch.topk`` promises no order among
+    ties, on the card least of all): a stable descending sort, then the
+    first k."""
+    v, i = torch.sort(x, dim=-1, descending=True, stable=True)
+    return v[..., :k], i[..., :k]

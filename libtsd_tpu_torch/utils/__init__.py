@@ -1,1 +1,1 @@
-from . import convert  # noqa: F401
+from . import convert, geometry, monitor, testing, timedate, wav  # noqa: F401

@@ -23,7 +23,10 @@ __all__ = ["fir_from_jax", "waveform_from_jax", "demod_sb_from_jax",
            "iir_cascade_from_jax", "fm_chain_from_jax",
            "fm_receiver_from_jax", "fm_receiver_state_from_jax",
            "qam16_modem_from_jax", "channelizer_from_jax",
-           "channelizer_state_from_jax", "rt_spectrum_from_jax"]
+           "channelizer_state_from_jax", "rt_spectrum_from_jax",
+           "lms_equalizer_from_jax", "equalizer_state_from_jax",
+           "transpo_bb_from_jax", "matzner_state_from_jax",
+           "linear_ssm_from_jax"]
 
 # the JAX package's batched engines -> the port's
 _ENGINES = {"auto": "auto", "xla": "auto", "pallas": "cuda",
@@ -320,3 +323,46 @@ def rt_spectrum_from_jax(src, device="cuda"):
     return RtSpectrum(*(_tensor(_field(src, k), device, torch.float32)
                         for k in ("win", "mask", "cnt")),
                       SpectrumConfig(**dataclasses.asdict(cfg)))
+
+
+def lms_equalizer_from_jax(eq, device="cuda"):
+    """The port's ``LmsEqualizer`` from a JAX one: its waveform (see
+    :func:`waveform_from_jax`) and its configuration."""
+    from ..models.equalizer import LmsEqualizer
+    return LmsEqualizer(waveform_from_jax(eq.wf, device),
+                        structure=str(eq.structure), errf=str(eq.errf),
+                        K=int(eq.K), alpha=float(eq.alpha), N1=int(eq.N1),
+                        N2=int(eq.N2), ref_mode=bool(eq.ref_mode))
+
+
+def equalizer_state_from_jax(state: Mapping, device="cuda") -> dict:
+    """A JAX ``LmsEqualizer`` state as the port's, key for key: the taps
+    ``h_fwd`` (and ``h_bwd``), real in ``ref_mode`` and complex64
+    otherwise, the windows ``wnd`` (and ``wnd_d``) and the int32 ``cnt``."""
+    device = _device(device)
+    return {k: torch.as_tensor(np.array(v), device=device)
+            for k, v in state.items()}
+
+
+def transpo_bb_from_jax(tb, device="cuda"):
+    """The port's ``TranspoBB`` from a JAX one: its image filter (see
+    :func:`fir_from_jax`), configuration and ``real_input``."""
+    from ..models.spread import TranspoBB, TranspoBBConfig
+    return TranspoBB(fir_from_jax(tb.img_filter, device),
+                     TranspoBBConfig(**dataclasses.asdict(tb.cfg)),
+                     real_input=bool(tb.real_input))
+
+
+def matzner_state_from_jax(state, device="cuda") -> tuple:
+    """A JAX ``MatznerTracker`` state (e2, e4), 0-d or one per channel, as
+    the port's float32 tensors."""
+    device = _device(device)
+    return tuple(torch.as_tensor(np.array(v, np.float32), device=device)
+                 for v in state)
+
+
+def linear_ssm_from_jax(ssm):
+    """The port's ``LinearSSM`` from a JAX one: its A, C, Q and R as host
+    arrays (the model keeps them on the host, as the JAX one does)."""
+    from ..models.kalman import LinearSSM
+    return LinearSSM(*(np.array(getattr(ssm, k)) for k in "ACQR"))

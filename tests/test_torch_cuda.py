@@ -1063,3 +1063,130 @@ def test_czt_and_xcorr_on_card_match_cpu(dev):
     assert torch.equal(lc.cpu(), lh)
     ov = (torch.clamp(4096 - lh.abs(), min=1.0) / 4096).to(dev)
     assert rel(cc * ov, ch.to(dev) * ov) < TOL
+
+
+# ----------------------------------------------------------------------
+# models ported without a kernel: their device paths on CUDA tensors (the
+# GF(2) syndromes as float32 matmuls, the tie-stable top-k, eigh, the
+# per-sample loops), each against the same call on CPU copies.
+
+def _adsb_blocks(C, n, seed):
+    from libtsd_tpu_torch.models.adsb import (_crc_bits_np, adsb_crc,
+                                              adsb_waveform)
+    rng = np.random.default_rng(seed)
+    x = 0.02 * np.abs(rng.standard_normal((C, n))).astype(np.float32)
+    want = {}
+    for c in range(C):
+        for j in range(3):
+            bits = rng.integers(0, 2, 112).astype(np.int8)
+            bits[:5] = [1, 0, 0, 0, 1]                    # DF17
+            bits[88:] = _crc_bits_np(bits[:88])           # CRC-24 parity
+            assert adsb_crc(bits).sum() == 0
+            p = 1000 + j * 20000 + 37 * c
+            wf = adsb_waveform(bits, osf=2)
+            x[c, p:p + len(wf)] += 0.8 * wf
+            want[(c, p)] = bits
+    return x, want
+
+
+def test_adsb_decode_block_on_card_matches_cpu(dev):
+    """(64, 65536) at the default config: the same candidates, bits and
+    CRC flags as on the CPU, every frame found with its bits."""
+    from libtsd_tpu_torch.models.adsb import AdsbConfig, AdsbDecoder
+    x, want = _adsb_blocks(64, 1 << 16, 0)
+    dc = AdsbDecoder(AdsbConfig(), device=dev)
+    dh = AdsbDecoder(AdsbConfig(), device="cpu")
+    gc = dc.decode_block(torch.as_tensor(x, device=dev))
+    gh = dh.decode_block(torch.as_tensor(x))
+    for f in ("position", "bits", "crc_ok", "valid"):
+        assert torch.equal(getattr(gc, f).cpu(), getattr(gh, f)), f
+    assert rel(gc.score, gh.score.to(dev)) < 1e-5
+    ok = (gc.valid & gc.crc_ok).cpu().numpy()
+    pos, bits = gc.position.cpu().numpy(), gc.bits.cpu().numpy()
+    got = {(c, int(pos[c, k])): bits[c, k] for c in range(64)
+           for k in np.flatnonzero(ok[c])}
+    assert sorted(got) == sorted(want)
+    assert all(np.array_equal(got[k], want[k]) for k in want)
+
+
+def test_adsb_topk_ties_on_card(dev):
+    """Equal scores everywhere (a flat block): the candidates are the
+    lowest positions in order, on the card as on the CPU."""
+    from libtsd_tpu_torch.ops.signal import top_k_stable
+    v = torch.zeros(4, 100000, device=dev)
+    v[:, 5000:5010] = 1.0
+    s, i = top_k_stable(v, 16)
+    want = list(range(5000, 5010)) + list(range(6))
+    assert (i.cpu() == torch.as_tensor(want)).all()
+    assert torch.equal(s.cpu(), top_k_stable(v.cpu(), 16)[0])
+
+
+def test_pocsag_scan_on_card_matches_cpu(dev):
+    """The sync scan, BCH syndromes and pair corrections on the card,
+    against the CPU, on a page with two bit errors in one codeword."""
+    from libtsd_tpu_torch.models import pocsag as P
+    bits = P.pocsag_encode(ric=42, function=3, text="CARD BCH TEST").copy()
+    base = 576 + 32 + 5 * 32
+    bits[base + 3] ^= 1
+    bits[base + 19] ^= 1
+    z = P.pocsag_waveform(bits, fe=48000.0, debit=1200, fi=3000.0)
+    cfg = P.PocsagConfig(fe=48000.0, fi=3000.0, debit=1200)
+    dc = P.PocsagDecoder(cfg, device=dev)
+    dh = P.PocsagDecoder(cfg, device="cpu")
+    d = dc._front(torch.as_tensor(z, device=dev))
+    rc, rh = dc._scan(d, 1200), dh._scan(d.cpu(), 1200)
+    for f in ("position", "bits", "cw_ok", "valid"):
+        assert torch.equal(getattr(rc, f).cpu(), getattr(rh, f)), f
+    assert rel(rc.score, rh.score.to(dev)) < 1e-5
+    msgs = dc.decode(torch.as_tensor(z, device=dev))
+    assert [(m.ric, m.function, m.text) for m in msgs] == \
+        [(42, 3, "CARD BCH TEST")]
+
+
+def test_doa_spectra_on_card_match_cpu(dev):
+    from libtsd_tpu_torch.models import doa as D
+    from libtsd_tpu_torch.models.stats import psd_subspace
+    rng = np.random.default_rng(4)
+    k = np.arange(16)
+    X = sum(np.outer(np.exp(2j * np.pi * 0.5 * np.cos(np.deg2rad(a)) * k),
+                     rng.standard_normal(400) + 1j * rng.standard_normal(400))
+            for a in (70.0, 110.0))
+    X = X + 0.1 * (rng.standard_normal((16, 400))
+                   + 1j * rng.standard_normal((16, 400)))
+    R = torch.as_tensor((X @ X.conj().T / 400).astype(np.complex64))
+    Rc = R.to(dev)
+    pc, sc = D.capon_spectrum(Rc, 0.5, 2048)
+    ph, sh = D.capon_spectrum(R, 0.5, 2048)
+    assert sc.device.type == "cuda" and rel(sc, sh.to(dev)) < 1e-4
+    for f in (D.musicdoa_1d, D.capondoa_1d):
+        ac, ah = f(Rc, 0.5, 2, Nf=2048), f(R, 0.5, 2, Nf=2048)
+        assert torch.equal(ac.cpu(), ah)
+    x = torch.as_tensor(X[0].astype(np.complex64))
+    _, mc = psd_subspace(x.to(dev), 2, 512, 16)
+    _, mh = psd_subspace(x, 2, 512, 16)
+    assert torch.argmax(mc).item() == torch.argmax(mh).item()
+    assert rel(10 ** (-mc.double() / 10), 10 ** (-mh.double().to(dev) / 10)
+               ) < 1e-4
+
+
+def test_lms_and_kalman_on_card_match_cpu(dev):
+    from libtsd_tpu_torch.models import waveform as WF
+    from libtsd_tpu_torch.models.equalizer import LmsEqualizer
+    from libtsd_tpu_torch.models.kalman import kalman_filter, ssm_random_walk
+    rng = np.random.default_rng(5)
+    sym = np.exp(1j * (np.pi / 4 + np.pi / 2 * rng.integers(0, 4, 600)))
+    x = (np.convolve(sym, [1.0, 0.35 - 0.2j, 0.12j])[:600]).astype(
+        np.complex64)
+    outs = []
+    for d in (dev, "cpu"):
+        eq = LmsEqualizer(WF.wf_qpsk(WF.PulseShape.nrz(), device=d),
+                          structure="dfe", N1=11, N2=7)
+        _, (y, _, act) = eq.step(eq.init(), torch.as_tensor(x, device=d))
+        outs.append(y.cpu())
+    assert (outs[0] - outs[1]).abs().max().item() < 1e-4
+    ys = torch.as_tensor(np.cumsum(0.1 * rng.standard_normal(500))
+                         + rng.standard_normal(500),
+                         dtype=torch.float32)[:, None]
+    xc, _ = kalman_filter(ssm_random_walk(), ys.to(dev))
+    xh, _ = kalman_filter(ssm_random_walk(), ys)
+    assert xc.device.type == "cuda" and rel(xc, xh.to(dev)) < 1e-5
