@@ -47,6 +47,14 @@ Builds the port's CUDA kernels from ``libtsd_tpu_torch/csrc`` into
   slots poisoned beforehand; ``sharded_chain`` (overlap-save ``OlaFft``,
   kernel #9, then an ``IirFrame``) at 64 channels and the sharded FM
   receiver at 256 x 2^18, each against its unsharded run;
+* the parallel layer across processes (``multiprocess_phase``): 4
+  workers started through ``parallel.launch`` (each its own card where
+  there are 4, else all on cuda:0), one "time" row across them and chan 2
+  x time 2: the main path's working set through
+  ``sharded_fir_periodogram4096`` in both halo forms (#11's receive slots
+  mapped between the processes by CUDA IPC; a poisoned slot), the
+  sharded chain and the sharded FM receiver, each rank's results against
+  this process's unsharded runs, each rank's launches of #11, #3 and #9;
 * the QAM-16 modem (``Qam16Modem``, ``__graft_entry__.entry()``) in both
   ``rx_mode``s: the entry workload, then 2,000 symbols delayed by 1.3
   samples against the BER and EVM gates of tests/test_receivers.py;
@@ -264,6 +272,13 @@ HOPS_PAR = 16
 TOL_SHARD, TOL_SHARD_IIR, TOL_SHARD_FM = 1e-5, 1e-4, 1e-4
 FM_PAR_SKIP = 16
 SENTINEL_I16 = 32767   # poisons an int16 receive slot
+# rows of the mesh across processes: MP_RANKS workers, each its own card
+# when there are as many, else all on cuda:0; (chan, time) layouts
+MP_RANKS = 4
+MP_LAYOUTS = ((1, MP_RANKS), (2, MP_RANKS // 2))
+MP_KERNELS = ("fir_periodogram4096_halo", "fir_periodogram4096", "ola")
+MP_TIMEOUT = 420       # seconds, for the whole fleet
+MP_ROUNDS = 3
 
 # the card's published peaks (NVIDIA's H100 SXM data sheet): HBM bytes/s,
 # fp32 FLOP/s outside the tensor cores, dense bf16 FLOP/s on them
@@ -1704,6 +1719,238 @@ def _events_ms(fn, runs: int = 3) -> float:
     return float(np.median(times))
 
 
+# ------------------------------------------- multiprocess: rows across ranks
+
+
+def mp_inputs(seed: int, dev) -> dict:
+    """The multiprocess phase's global inputs, made on ``dev`` from the
+    seed in the same order in the parent and in every worker: the main
+    path's working set (C_MAIN x N_MAIN int16) and its G, the sharded
+    chain's blocks and input (as ``parallel_setup``), the FM receiver and
+    its C_FM x N_FM tones."""
+    from libtsd_tpu_torch.models.receivers import FmReceiver, FmReceiverConfig
+    from libtsd_tpu_torch.ops.filter_rt import (IirFrame, OlaFft,
+                                                fir_toeplitz_mats)
+    from libtsd_tpu_torch.ops.fir_design import fir_lowpass
+    from libtsd_tpu_torch.ops.iir_design import design_iir
+    gen = torch.Generator(device=dev).manual_seed(seed + 14)
+    h = fir_lowpass(256, 0.2)
+    x = torch.randint(-2048, 2048, (C_MAIN, N_MAIN), generator=gen,
+                      device=dev, dtype=torch.int16)
+    ola = OlaFft.create(fir_lowpass(129, 0.2), engine="cuda", device=dev)
+    b, a = design_iir(2, "lp", "butt", 0.1).to_ba()
+    w = torch.randn(2, C_PAR, MESH_TIME * HOPS_PAR * ola.Ne, generator=gen,
+                    device=dev)
+    xfm, _ = fm_signal(gen, dev, C_FM, 0.25)
+    G = torch.as_tensor(fir_toeplitz_mats(np.asarray(h, np.float64))
+                        .astype(np.float32), device=dev)
+    return dict(G=G, x=x, ola=ola, iir=IirFrame.create(b, a, device=dev),
+                xc=torch.complex(w[0], w[1]), xfm=xfm,
+                fm=FmReceiver.create(FmReceiverConfig(), device=dev))
+
+
+def _mp_time(fn) -> float:
+    """Best of MP_ROUNDS of one call, CUDA events, each after a barrier of
+    every rank (the caller's first call warmed up)."""
+    import torch.distributed as dist
+    best = float("inf")
+    for _ in range(MP_ROUNDS):
+        torch.cuda.synchronize()
+        dist.barrier()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        torch.cuda.synchronize()
+        best = min(best, e0.elapsed_time(e1))
+    return best
+
+
+def mp_worker(argv: list) -> int:
+    """One rank of the multiprocess phase (``launch.spawn`` starts it with
+    --coordinator/--nproc/--pid): its own card when there are as many
+    cards as ranks, else cuda:0, shared.  It loads the parent's build
+    (never builds), runs each layout of MP_LAYOUTS through the port's entry
+    points with the launch counts zeroed first, saves its results for the
+    parent and prints one ``mp {...}`` line a layout."""
+    import torch.distributed as dist
+    from libtsd_tpu_torch.ops import kernels
+    from libtsd_tpu_torch.ops.kernels import _build
+    from libtsd_tpu_torch.ops.kernels import chain_halo as KH
+    from libtsd_tpu_torch.parallel import (launch, make_mesh, sharded_chain,
+                                           sharded_fir_periodogram4096,
+                                           sharded_fm_receiver)
+    get = lambda k: argv[argv.index(k) + 1]          # noqa: E731
+    nproc, pid = int(get("--nproc")), int(get("--pid"))
+    out = get("--mp-out")
+    card = pid if torch.cuda.device_count() >= nproc else 0
+    if not _build.library_path().exists():
+        raise RuntimeError("the parent builds the kernels before the workers")
+    launch.initialize(get("--coordinator"), nproc, pid,
+                      local_device_ids=[card])
+    dev = torch.device("cuda", card)
+    inp = mp_inputs(int(get("--seed")), dev)
+    G, ola, iir, fm = inp["G"], inp["ola"], inp["iir"], inp["fm"]
+    for chan, time_ in MP_LAYOUTS:
+        mesh = make_mesh(chan=chan, time=time_)
+        link = mesh.links[0]
+
+        def mine(a):
+            rs = launch.host_slice(mesh, "chan", a.shape[0])
+            ts = launch.host_slice(mesh, "time", a.shape[1])
+            return launch.ingest_local(mesh, a[rs, ts])
+        xs, xc, xf = mine(inp["x"]), mine(inp["xc"]), mine(inp["xfm"])
+        torch.cuda.synchronize()
+        dist.barrier()
+        kernels.reset_launches()
+        res = {f: sharded_fir_periodogram4096(mesh, xs, G, precision="int16",
+                                              halo=f, fir_passes=2)
+               for f in ("fused", "ppermute")}
+        res["chain"] = sharded_chain(mesh, [(ola, ola.V), (iir, 0)], xc)
+        res["fm"] = sharded_fm_receiver(mesh, fm, xf)
+        torch.cuda.synchronize()
+        counts = kernels.launches()
+        for r in mesh.halo_buffers[0].recv:
+            r.fill_(SENTINEL_I16)
+        torch.cuda.synchronize()
+        dist.barrier()        # no rank pushes before every slot is filled
+        res["fused_poisoned"] = sharded_fir_periodogram4096(
+            mesh, xs, G, precision="int16", halo="fused", fir_passes=2)
+        ms = {f: _mp_time(lambda f=f: sharded_fir_periodogram4096(
+            mesh, xs, G, precision="int16", halo=f, fir_passes=2))
+            for f in ("fused", "ppermute")}
+        bufs = mesh.halo_buffers[0]
+        devs = [x.device for x in xs[0]]
+
+        def order():
+            KH._order_before(bufs, devs, 0)
+            KH._order_after(bufs, devs, 0)
+        order()
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            order()
+        torch.cuda.synchronize()
+        ms["order"] = (time.perf_counter() - t0) / 20 * 1e3
+        grid = {k: {(r, t0_ + j): p.cpu() for r, t0_, row in
+                    zip(mesh.rows, mesh.tstart, res[k]) for j, p in
+                    enumerate(row)} for k in ("chain", "fm")}
+        torch.save({"rows": mesh.rows, **grid,
+                    **{k: res[k].cpu() for k in ("fused", "ppermute",
+                                                  "fused_poisoned")}},
+                   os.path.join(out, f"{chan}x{time_}_{pid}.pt"))
+        print("mp " + json.dumps({
+            "rank": pid, "layout": f"{chan}x{time_}", "card": card,
+            "transport": link.transport if link else "none",
+            "launches": {k: counts[k] for k in MP_KERNELS}, "ms": ms}),
+            flush=True)
+        del xs, xc, xf, res, mesh
+        torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    return 0
+
+
+def multiprocess_phase(seed: int, dev) -> dict:
+    """Rows of the mesh across MP_RANKS processes (``parallel.launch``):
+    one "time" row across the ranks, then chan 2 x time 2.  The parent
+    has built the kernels; it makes the same inputs, computes the
+    references on one card (#3 on the whole signal, the unsharded OlaFft
+    + IirFrame chain and FmReceiver.step) and the single-controller time
+    of both forms on a (1, MP_RANKS) mesh over the ranks' cards, then spawns
+    the ranks (one deadline for all, MP_TIMEOUT s) and holds each rank's
+    results to the references: the spectra to TOL_SHARD of the peak and
+    TOL_BIN a bin (a slot poisoned with SENTINEL_I16 first too), the
+    chain and the FM receiver as the parallel phase holds them.  Each
+    rank's launch counts of #11, #3 and #9 must be non-zero.  Returns the
+    max errors (#11: the fused form, #3: the ppermute form) and the
+    times."""
+    from libtsd_tpu_torch.ops.kernels import _build
+    from libtsd_tpu_torch.ops.kernels.chain import fir_periodogram4096
+    from libtsd_tpu_torch.parallel import (launch, make_mesh, shard,
+                                           sharded_fir_periodogram4096)
+    inp = mp_inputs(seed, dev)
+    G, x, ola, iir, fm = (inp[k] for k in ("G", "x", "ola", "iir", "fm"))
+    one = fir_periodogram4096(x, G, precision="int16", fir_passes=2)
+    xc, xfm = inp["xc"], inp["xfm"]
+    chain_ref = ola.step(ola.init_for(xc), xc)[1]
+    chain_ref = iir.step(iir.init_for(chain_ref), chain_ref)[1]
+    fm_ref = fm.step(fm.init_for(xfm), xfm)[1]
+    # one process over the ranks' cards (the same shards, pre-sharded)
+    own = torch.cuda.device_count() >= MP_RANKS
+    mesh1 = make_mesh(chan=1, time=MP_RANKS, devices=[
+        torch.device("cuda", i if own else 0) for i in range(MP_RANKS)])
+    xs1 = shard(mesh1, x)
+    single = {f: time_ms(lambda f=f: sharded_fir_periodogram4096(
+        mesh1, xs1, G, precision="int16", halo=f, fir_passes=2), reps=3)
+        for f in ("fused", "ppermute")}
+    del mesh1, xs1, inp
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out = _build.BUILD_DIR.parent / "chip_smoke" / "mp"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    t0 = time.perf_counter()
+    logs = launch.spawn([os.path.abspath(__file__), "--mp-worker", "--seed",
+                         str(seed), "--mp-out", str(out)], MP_RANKS,
+                        timeout=MP_TIMEOUT)
+    print(f"multiprocess: {MP_RANKS} ranks, "
+          f"{time.perf_counter() - t0:.1f} s")
+    lines = [json.loads(ln[3:]) for log in logs for ln in log.splitlines()
+             if ln.startswith("mp {")]
+    for log in logs:
+        for ln in log.splitlines():
+            if ln.startswith(("mp {", "mesh:")):
+                print(f"multiprocess {ln}")
+    err = {"fir_periodogram4096_halo": 0.0, "fir_periodogram4096": 0.0}
+    for ln in lines:
+        if any(ln["launches"][k] == 0 for k in MP_KERNELS):
+            raise AssertionError(f"multiprocess rank {ln['rank']} layout "
+                                 f"{ln['layout']}: launches {ln['launches']}")
+    for chan, time_ in MP_LAYOUTS:
+        lay = f"{chan}x{time_}"
+        got = [torch.load(out / f"{lay}_{p}.pt") for p in range(MP_RANKS)]
+        c = C_MAIN // chan
+        want = torch.cat([one[r * c:(r + 1) * c] for g in got
+                          for r in g["rows"]])
+        for form, key in (("fused", "fir_periodogram4096_halo"),
+                          ("fused_poisoned", "fir_periodogram4096_halo"),
+                          ("ppermute", "fir_periodogram4096")):
+            a = torch.cat([g[form] for g in got]).to(dev)
+            err[key] = max(err[key], check(
+                f"multiprocess {lay} {form} (every rank's rows) vs #3 on the "
+                f"whole {C_MAIN} x {N_MAIN} int16/2", a, want, TOL_SHARD,
+                per_bin=True))
+        for key, ref, tol, skip in (("chain", chain_ref, TOL_SHARD_IIR, 0),
+                                    ("fm", fm_ref, TOL_SHARD_FM,
+                                     FM_PAR_SKIP)):
+            cr, nr = ref.shape[0] // chan, ref.shape[1] // time_
+            full = torch.full_like(ref, float("nan"))
+            for g in got:
+                for (r, t), p in g[key].items():
+                    full[r * cr:(r + 1) * cr, t * nr:(t + 1) * nr] = p.to(dev)
+            d = (full[:, skip:] - ref[:, skip:]).abs().max().item()
+            ok = bool(torch.isfinite(full).all()) and d < tol
+            print(f"check multiprocess {lay} {key} vs one process: "
+                  f"max_abs_err={d:.6e} after {skip} outputs tol={tol:g} "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"multiprocess {lay} {key}")
+    worst = {f"{ln['layout']} {k}": max(m["ms"][k] for m in lines
+                                        if m["layout"] == ln["layout"])
+             for ln in lines for k in ln["ms"]}
+    print(f"time multiprocess (slowest rank, best of {MP_ROUNDS}): "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in worst.items())
+          + f"; one process driving the same {MP_RANKS} shards of "
+          f"{'a card each' if own else 'one card'}: fused "
+          f"{single['fused']:.4f} ms, ppermute {single['ppermute']:.4f} ms")
+    shutil.rmtree(out, ignore_errors=True)
+    return {"err": err, "ranks": lines, "slowest_ms": worst,
+            "single_process_ms": single,
+            "transport": sorted({ln["transport"] for ln in lines})}
+
+
 def sinc_taps64(nc: int, fcut: float, tau: float) -> np.ndarray:
     """Windowed-sinc fractional-delay taps at offset tau, float64, written
     here from the reference's formula (itrp.cc:24-39: the Hann window
@@ -2954,6 +3201,9 @@ def main() -> int:
                          "one step of each QAM and frame-receiver engine, "
                          "the FM chain, both sharded chain forms and the "
                          "config-3 chain; chrome traces go into DIR")
+    if "--mp-worker" in sys.argv:       # a rank of the multiprocess phase
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        return mp_worker(sys.argv)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
@@ -3107,6 +3357,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"phase parallel: {time.perf_counter() - t_phase:.1f} s")
 
+    # rows across processes (#11 through IPC-mapped slots; #3 and #9
+    # under the mesh): each worker zeroes its counts before its run
+    t_phase = time.perf_counter()
+    mp = multiprocess_phase(args.seed, dev)
+    for k, v in mp["err"].items():
+        errs[k] = max(errs[k], v)
+    torch.cuda.empty_cache()
+    print(f"phase multiprocess: {time.perf_counter() - t_phase:.1f} s")
+
     # the QAM-16 modem, __graft_entry__.entry() (no kernel)
     t_phase = time.perf_counter()
     modem = modem_phase(args.seed, dev)
@@ -3179,6 +3438,8 @@ def main() -> int:
                        "fm_step": {"composed_ms": fm_step_ms,
                                    "channels": C_FM, "n": N_FM},
                        "modem": modem, "parallel": par_extra,
+                       "multiprocess": {k: v for k, v in mp.items()
+                                        if k != "err"},
                        "config3": cfg3, **later},
                       f, indent=1)
     print(json.dumps({"kernels": rows}))

@@ -42,6 +42,17 @@
 // run beside the one before it but never overwrites a slot its neighbour
 // has not read yet.  On one stream the launch order gives that for free.
 //
+// Across processes.  A mesh row may span several processes on one host
+// (one per card, or several sharing a card).  The receive slot (and flags)
+// of a process's first shard is then one cudaMalloc segment that it
+// exports with cudaIpcGetMemHandle; the process on its left maps it with
+// cudaIpcOpenMemHandle and its last shard pushes there as above.  The
+// protocol and this kernel do not change: the flags are acquired and
+// released at system scope already.  The wrapper orders the calls of the
+// processes on the host (a row barrier each call; where the processes
+// share a card, each shard also starts after its left neighbour's kernel
+// has finished: see ops/kernels/chain_halo.py).
+//
 // Bound on the H100: #3's (the tensor-core FIR of the bf16 tiers, the fp32
 // FMAs of "highest"; chain_body.cuh), plus P samples a channel read and
 // written once more for the push.
@@ -178,4 +189,52 @@ extern "C" int chain_halo_enable_peer(int dev, int peer) {
   }
   cudaSetDevice(prev);
   return (int)err;
+}
+
+// CUDA IPC for a receive slot that the process on the left pushes into.
+// chain_halo_ipc_alloc: cudaMalloc `bytes` on device `dev`, zeroed, and
+// its handle (cudaIpcMemHandle_t, 64 bytes) into `handle`.  The others
+// open, close and free such a segment.  Each restores the calling thread's
+// current device.
+struct DeviceScope {
+  int prev = 0;
+  cudaError_t err;
+  explicit DeviceScope(int dev) {
+    err = cudaGetDevice(&prev);
+    if (err == cudaSuccess) err = cudaSetDevice(dev);
+  }
+  ~DeviceScope() { cudaSetDevice(prev); }
+};
+
+extern "C" int chain_halo_ipc_alloc(int dev, long long bytes, void** ptr,
+                                    void* handle) {
+  DeviceScope scope(dev);
+  if (scope.err != cudaSuccess) return (int)scope.err;
+  cudaError_t err = cudaMalloc(ptr, (size_t)bytes);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaMemset(*ptr, 0, (size_t)bytes);
+  if (err == cudaSuccess) err = cudaDeviceSynchronize();
+  if (err == cudaSuccess)
+    err = cudaIpcGetMemHandle(static_cast<cudaIpcMemHandle_t*>(handle), *ptr);
+  return (int)err;
+}
+
+extern "C" int chain_halo_ipc_open(int dev, const void* handle, void** ptr) {
+  DeviceScope scope(dev);
+  if (scope.err != cudaSuccess) return (int)scope.err;
+  return (int)cudaIpcOpenMemHandle(
+      ptr, *static_cast<const cudaIpcMemHandle_t*>(handle),
+      cudaIpcMemLazyEnablePeerAccess);
+}
+
+extern "C" int chain_halo_ipc_close(int dev, void* ptr) {
+  DeviceScope scope(dev);
+  if (scope.err != cudaSuccess) return (int)scope.err;
+  return (int)cudaIpcCloseMemHandle(ptr);
+}
+
+extern "C" int chain_halo_ipc_free(int dev, void* ptr) {
+  DeviceScope scope(dev);
+  if (scope.err != cudaSuccess) return (int)scope.err;
+  return (int)cudaFree(ptr);
 }

@@ -203,19 +203,27 @@ def subspace_spectrum(R, Ns: int, Nf: int = 512,
     stats.cc:143-236).
 
     Ns = -1 selects the source count by the (corrected) Wax-Kailath MDL
-    criterion, :func:`mdl_source_count`.  ``debug=True`` (the eigenvalue
-    and MDL figures) raises ``NotImplementedError`` until the port has its
-    ``viz`` package.
+    criterion, :func:`mdl_source_count`.  ``debug=True`` additionally
+    shows the eigenvalue + MDL figures like the reference's
+    ``debug_actif`` (stats.cc:182-190), into ``viz``'s active report
+    (matplotlib needed then).
     """
-    if debug:
-        raise NotImplementedError(
-            "subspace_spectrum(debug=True) draws with viz, which the port "
-            "does not have yet")
     R = as_tensor(R, complex_dtype, device)
     m = R.shape[0]
     if Ns == -1:
-        Ns, _ = mdl_source_count(R)
+        Ns, crit = mdl_source_count(R)
         Ns = max(Ns, 1)                  # keep >=1 noise-subspace split
+        if debug:
+            from ..viz.figure import Figures
+            la = np.abs(np.linalg.eigvalsh(_host(R))[::-1])
+            figs = Figures()
+            f1 = figs.subplot()
+            f1.plot(10 * np.log10(np.maximum(la, 1e-30)))
+            f1.titles("Eigenvalues (log)", "index", "dB")
+            f2 = figs.subplot()
+            f2.plot(np.arange(m), crit)
+            f2.titles("MDL criterion", "source count", "MDL")
+            figs.show("MDL")
     if not Ns < m:
         raise ValueError(f"Ns={Ns} must be < the matrix size {m}")
     w, V = torch.linalg.eigh(R)  # ascending eigenvalues

@@ -36,6 +36,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 SMEM_MAX = 227 * 1024   # dynamic shared memory one block may use on sm_90
 
 P = ctypes.c_void_p
+PP = ctypes.POINTER(ctypes.c_void_p)
 I = ctypes.c_int
 I64 = ctypes.c_longlong
 U32 = ctypes.c_uint
@@ -60,6 +61,10 @@ SIGNATURES = {
     "fir_periodogram4096_halo": [P, P, P, P, P, P, P, P, P, I, I, I64, I, I,
                                  I, I, I, U32, P],
     "chain_halo_enable_peer": [I, I],
+    "chain_halo_ipc_alloc": [I, I64, PP, P],
+    "chain_halo_ipc_open": [I, P, PP],
+    "chain_halo_ipc_close": [I, P],
+    "chain_halo_ipc_free": [I, P],
 }
 
 _lock = threading.Lock()

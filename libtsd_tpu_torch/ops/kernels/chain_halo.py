@@ -23,6 +23,25 @@ for the event after its right neighbour's kernel of the call two back.
 :class:`HaloBuffers` holds the slots, flags, epoch and events of one
 row; ``parallel.chain`` keeps one per mesh row and reuses it.
 
+Across processes (a mesh row over several processes on one host,
+``HaloBuffers.link``), the receive slot of a process's first shard is a
+``cudaMalloc`` segment exported by CUDA IPC and mapped into the process on
+its left, which pushes there; the handles go round once per row.  The
+host orders the processes each call:
+
+* "nccl" transport (the row's ranks on distinct cards): a one-word
+  all-reduce over the row's group on the first shard's stream before the
+  launches.  A rank's kernels then start after every rank's kernels of
+  the previous call have finished, so call e overwrites a slot only after
+  its reader of call e - 2 (and e - 1) is done, and the neighbours start
+  together: a wait lasts about one kernel start;
+* "gloo" transport (ranks that share a card, whose kernels time-slice
+  and never overlap): each rank waits for a token from the rank on its
+  left, which sends it once its kernels have finished, launches, waits
+  for its own kernels and sends the token on; a row barrier ends the call.
+  A shard then never spins on a flag while its left neighbour waits for
+  a time slice, and no slot is written before its last reader is done.
+
 ``tb``, ``pipe`` and ``interpret`` of the JAX function are TPU knobs and
 are not ported, as for #3.  Rows across cards (peer stores over NVLink)
 are checked on a four-card host by
@@ -34,6 +53,7 @@ import ctypes
 from typing import Sequence
 
 import torch
+import torch.distributed as dist
 
 from . import _build
 from .chain import (_L, _DTYPE_CODE, _history, _ingest, aligned,
@@ -54,22 +74,59 @@ def _halo_len(G: torch.Tensor, N: int) -> int:
     return P
 
 
-class HaloBuffers:
-    """Receive slots and flags of kernel #11 for one mesh row, kept over
-    calls: per shard ``recv`` (2, C, P) in the ingest dtype and ``flags``
-    (2, C) int32 on its device, both zeroed when made; the call ``epoch``;
-    and per slot the event after each shard's kernel of the last call that
-    used the slot (waited on only across streams).  Made empty: the wrapper
-    sizes it at its first call, and again when the row changes."""
+class _DeviceBytes:
+    """A raw device allocation seen as an array (``torch.as_tensor`` reads
+    ``__cuda_array_interface__``); the tensor does not own the memory."""
 
-    def __init__(self):
+    _TYPESTR = {torch.int16: "<i2", torch.bfloat16: "<i2",
+                torch.float32: "<f4", torch.int8: "|i1", torch.int32: "<i4"}
+
+    def __init__(self, ptr: int, shape: tuple, dtype: torch.dtype):
+        self.__cuda_array_interface__ = {
+            "shape": tuple(shape), "typestr": self._TYPESTR[dtype],
+            "data": (int(ptr), False), "version": 2}
+
+    @classmethod
+    def tensor(cls, ptr: int, shape: tuple, dtype: torch.dtype,
+               dev: torch.device) -> torch.Tensor:
+        t = torch.as_tensor(cls(ptr, shape, dtype), device=dev)
+        return t.view(torch.bfloat16) if dtype == torch.bfloat16 else t
+
+
+def _ipc_layout(C: int, P: int, dtype: torch.dtype) -> tuple[int, int]:
+    """(byte offset of the flags, total bytes) of an exported slot:
+    recv (2, C, P) in the ingest dtype, then flags (2, C) int32."""
+    es = torch.empty((), dtype=dtype).element_size()
+    off = -(-2 * C * P * es // 256) * 256
+    return off, off + 2 * C * 4
+
+
+class HaloBuffers:
+    """Receive slots and flags of kernel #11 for one mesh row (this
+    process's segment of it), kept over calls: per shard ``recv`` (2, C, P)
+    in the ingest dtype and ``flags`` (2, C) int32 on its device, both
+    zeroed when made; the call ``epoch``; per slot the event after each
+    shard's kernel of the last call that used the slot (waited on only
+    across streams).  ``link``: the row's ``parallel.mesh.RowLink`` where it
+    crosses processes (None: the whole row is in this process); then the
+    first shard's slot is exported by CUDA IPC when a rank sits to its
+    left, and the right rank's slot is mapped (``peer``).  Made empty: the
+    wrapper sizes it at its first call, and again when the row changes."""
+
+    def __init__(self, link=None):
+        self.link = link
         self.key = None
         self.recv, self.flags = [], []
         self.epoch = 0
         self.done = [[], []]
+        self.peer = None        # (device, base pointer) mapped from the right
+        self._own = None        # (device, base pointer) exported to the left
+        self.tick = None        # the "nccl" row barrier's word
 
     def fit(self, devices: list, C: int, P: int, dtype: torch.dtype) -> None:
-        """Allocate the slots for this row unless they already fit it."""
+        """Allocate the slots for this row unless they already fit it.
+        Across processes every rank of the row calls this at the same
+        call: the slot handles are exchanged over the row's group."""
         key = (tuple(devices), C, P, dtype)
         if key == self.key:
             return
@@ -77,13 +134,74 @@ class HaloBuffers:
             # a kernel of the last call may still push into the old slots
             for d in set(self.key[0]):
                 torch.cuda.synchronize(d)
+            self.release()
         self.key = key
+        link = self.link
         self.recv = [torch.zeros((2, C, P), dtype=dtype, device=d)
                      for d in devices]
         self.flags = [torch.zeros((2, C), dtype=torch.int32, device=d)
                       for d in devices]
         self.epoch = 0
         self.done = [[None] * len(devices) for _ in range(2)]
+        if link is None:
+            return
+        off, nbytes = _ipc_layout(C, P, dtype)
+        handle = None
+        if link.left is not None:
+            d = devices[0]
+            base = ctypes.c_void_p()
+            buf = ctypes.create_string_buffer(64)
+            _build.check(_build.lib().chain_halo_ipc_alloc(
+                d.index, nbytes, ctypes.byref(base), buf),
+                "chain_halo_ipc_alloc")
+            self._own = (d, base.value)
+            self.recv[0] = _DeviceBytes.tensor(base.value, (2, C, P), dtype, d)
+            self.flags[0] = _DeviceBytes.tensor(base.value + off, (2, C),
+                                                torch.int32, d)
+            handle = buf.raw
+        handles = [None] * len(link.ranks)
+        with torch.cuda.device(link.device):
+            dist.all_gather_object(handles, handle, group=link.group)
+        if link.right is not None:
+            d = devices[-1]
+            h = handles[link.ranks.index(link.right)]
+            base = ctypes.c_void_p()
+            _build.check(_build.lib().chain_halo_ipc_open(
+                d.index, ctypes.create_string_buffer(h, 64),
+                ctypes.byref(base)), "chain_halo_ipc_open")
+            self.peer = (d, base.value)
+        if link.transport == "nccl":
+            self.tick = torch.zeros(1, dtype=torch.int32, device=devices[0])
+
+    def peer_slot(self, s: int) -> tuple:
+        """(recv, flags) pointers of slot s of the right rank's first
+        shard, in this process's mapping."""
+        C, P, dtype = self.key[1:]
+        off, _ = _ipc_layout(C, P, dtype)
+        es = torch.empty((), dtype=dtype).element_size()
+        base = self.peer[1]
+        return (ctypes.c_void_p(base + s * C * P * es),
+                ctypes.c_void_p(base + off + s * C * 4))
+
+    def release(self) -> None:
+        """Unmap the right rank's slot and free the exported one, once no
+        rank of the row maps it any more (a row barrier between)."""
+        if self.link is None:
+            return
+        if self.peer is not None:
+            d, base = self.peer
+            _build.check(_build.lib().chain_halo_ipc_close(
+                d.index, ctypes.c_void_p(base)), "chain_halo_ipc_close")
+            self.peer = None
+        with torch.cuda.device(self.link.device):
+            dist.barrier(group=self.link.group)
+        if self._own is not None:
+            d, base = self._own
+            self.recv[0] = self.flags[0] = None
+            _build.check(_build.lib().chain_halo_ipc_free(
+                d.index, ctypes.c_void_p(base)), "chain_halo_ipc_free")
+            self._own = None
+        self.key = None
 
 
 def fir_periodogram4096_halo_plain(xs: Sequence[torch.Tensor],
@@ -140,25 +258,80 @@ def _enable_peer(devices: list) -> None:
                          f"chain_halo_enable_peer({a}, {b})")
 
 
+def _plain_across(xs: list, G: torch.Tensor, hist0, precision: str,
+                  link) -> torch.Tensor | None:
+    """The plain route's history of a segment whose row crosses
+    processes: this segment's last tail goes to the rank on the right
+    (point to point over the row's group) and the rank on the left's
+    arrives as the first shard's history; the caller's hist0 where the
+    segment starts the row."""
+    from ...parallel.halo import send_recv_tail
+    x0 = _ingest(xs[-1], precision)
+    C, N = x0.shape
+    D = G.shape[0]
+    P = _halo_len(G, N)
+    if P == 0:
+        return hist0
+    got = send_recv_tail(x0[:, N - P:], link)
+    return hist0 if link.left is None else got.reshape(C, D - 1, _L)
+
+
+def _order_before(bufs: HaloBuffers, devices: list, epoch: int) -> None:
+    """Across processes, what a rank waits for before its launches (see
+    the module's docstring): the "nccl" row barrier on the first shard's
+    stream, or the "gloo" token from the rank on the left."""
+    link = bufs.link
+    if link.transport == "nccl":
+        with torch.cuda.device(devices[0]):
+            dist.all_reduce(bufs.tick, group=link.group)
+    elif link.left is not None:
+        token = torch.zeros(1, dtype=torch.int64)
+        dist.recv(token, link.left, group=link.group)
+        if int(token) != epoch:
+            raise RuntimeError(f"#11 across processes: call {epoch} got the "
+                               f"token of call {int(token)} from rank "
+                               f"{link.left}")
+
+
+def _order_after(bufs: HaloBuffers, devices: list, epoch: int) -> None:
+    """Across processes on the "gloo" transport: wait for this rank's
+    kernels, pass the token to the right, then a row barrier."""
+    link = bufs.link
+    if link.transport == "nccl":
+        return
+    for d in set(devices):
+        torch.cuda.synchronize(d)
+    if link.right is not None:
+        dist.send(torch.tensor([epoch], dtype=torch.int64), link.right,
+                  group=link.group)
+    with torch.cuda.device(link.device):
+        dist.barrier(group=link.group)
+
+
 def fir_periodogram4096_halo(xs: Sequence[torch.Tensor], G: torch.Tensor,
                              hist0: torch.Tensor | None = None,
                              precision: str = "highest",
                              fir_passes: int = 3,
                              bufs: HaloBuffers | None = None) -> list:
-    """xs: the time shards of one mesh row, in time order, each (C,
-    N_local) on its device (N_local % 4096 == 0).  G: (D, 128, 128)
-    Toeplitz tap matrices.  Returns the per-shard partial spectra (C, 4096)
-    float32, each on its shard's device; their sum is #3 on the
-    concatenated signal.
+    """xs: the time shards of one mesh row (this process's segment of it),
+    in time order, each (C, N_local) on its device (N_local % 4096 == 0).
+    G: (D, 128, 128) Toeplitz tap matrices.  Returns the per-shard partial
+    spectra (C, 4096) float32, each on its shard's device; their sum over
+    the row is #3 on the concatenated signal.
 
-    hist0: the (C, max(D-1, 1), 128) history before shard 0 (None = zero
-    state).  bufs: the row's :class:`HaloBuffers`, kept by the caller over
-    calls (a fresh set when None).
+    hist0: the (C, max(D-1, 1), 128) history before the row's first shard
+    (None = zero state); a segment that does not start the row takes its
+    history from the rank on its left instead.  bufs: the row's
+    :class:`HaloBuffers`, kept by the caller over calls (a fresh set when
+    None; across processes the mesh's, which carry the row's link).
     precision / fir_passes: as for ``chain.fir_periodogram4096``."""
     xs = list(xs)
     if not xs:
         raise ValueError("no time shards")
+    link = bufs.link if bufs is not None else None
     if _plain_row(xs):
+        if link is not None:
+            hist0 = _plain_across(xs, G, hist0, precision, link)
         return fir_periodogram4096_halo_plain(xs, G, hist0, precision,
                                               fir_passes)
     xs = [_ingest(x, precision).contiguous() for x in xs]
@@ -172,16 +345,22 @@ def fir_periodogram4096_halo(xs: Sequence[torch.Tensor], G: torch.Tensor,
     multi = len(set(devices)) > 1
     if multi:
         _enable_peer(devices)
-    h0 = _history(hist0, C, D, xs[0].dtype, devices[0])
+    from_left = link is not None and link.left is not None
+    h0 = None if from_left else _history(hist0, C, D, xs[0].dtype,
+                                         devices[0])
     # flags hold the low 32 bits of the epoch: a slot's flag then holds
     # the value of the call two back, never this call's (the zeroed flags
     # precede epochs 1 and 2)
     bufs.epoch += 1
     epoch, s = bufs.epoch & 0xFFFFFFFF, bufs.epoch & 1
+    if link is not None:
+        _order_before(bufs, devices, epoch)
+    to_right = link is not None and link.right is not None
     null = ctypes.c_void_p(None)
     outs, started = [], None
     for t, x in enumerate(xs):
         dev = x.device
+        last = t + 1 == len(xs)
         with torch.cuda.device(dev):
             x = aligned(x)                  # 16-byte loads and pushes
             tp, K, passes = kernel_taps(G, precision, fir_passes, dev)
@@ -193,19 +372,25 @@ def fir_periodogram4096_halo(xs: Sequence[torch.Tensor], G: torch.Tensor,
             if multi:
                 if t > 0 and devices[t - 1] != dev:
                     stream.wait_event(started)
-                right = bufs.done[s][t + 1] if t + 1 < len(xs) else None
+                right = bufs.done[s][t + 1] if not last else None
                 if right is not None and devices[t + 1] != dev:
                     stream.wait_event(right)
                 started = torch.cuda.Event()
                 started.record(stream)
-            has_left = t > 0 and P > 0
-            has_right = t + 1 < len(xs) and P > 0
+            has_left = (t > 0 or from_left) and P > 0
+            has_right = (not last or to_right) and P > 0
+            if has_right and last:
+                peer_recv, peer_flag = bufs.peer_slot(s)
+            elif has_right:
+                peer_recv = _build.ptr(bufs.recv[t + 1][s])
+                peer_flag = _build.ptr(bufs.flags[t + 1][s])
+            else:
+                peer_recv = peer_flag = null
             err = _build.lib().fir_periodogram4096_halo(
                 _build.ptr(x), _build.ptr(hist),
                 _build.ptr(bufs.recv[t][s]) if has_left else null,
                 _build.ptr(bufs.flags[t][s]) if has_left else null,
-                _build.ptr(bufs.recv[t + 1][s]) if has_right else null,
-                _build.ptr(bufs.flags[t + 1][s]) if has_right else null,
+                peer_recv, peer_flag,
                 _build.ptr(tp), _build.ptr(tw), _build.ptr(out),
                 _DTYPE_CODE[x.dtype], passes, N, C, K, P,
                 (D - 1) * _L if (t == 0 and h0 is not None) else 0,
@@ -216,6 +401,8 @@ def fir_periodogram4096_halo(xs: Sequence[torch.Tensor], G: torch.Tensor,
                 bufs.done[s][t] = torch.cuda.Event()
                 bufs.done[s][t].record(stream)
         outs.append(out)
+    if link is not None:
+        _order_after(bufs, devices, epoch)
     return outs
 
 

@@ -11,19 +11,23 @@ Ported from ``libtsd_tpu/parallel/chain.py``:
   sharded run equals the unsharded one up to float32 reassociation of the
   per-shard spectrum sums;
 * the per-shard partial spectra are summed over "time", JAX's ``psum``:
-  here one sum of the row's (C_local, 4096) partials on the row's first
-  device.
+  here one sum of the row's (C_local, 4096) partials on the first device
+  of this process's segment, then, where the row crosses processes, an
+  all-reduce over the row's group, so that the row's spectrum stands on
+  every rank of the row (JAX's ``out_specs=P("chan", None)``).
 
 Two exchange forms, as in JAX: ``halo="ppermute"`` copies the tails with
-``halo_exchange_left`` and runs kernel #3 with ``hist0``;
-``halo="fused"`` runs kernel #11, which stores each tail into the right
-neighbour's receive slot from inside the kernel (``ops.kernels.
-chain_halo``; its slots are allocated once per mesh row and kept in
-``mesh.halo_buffers``).
+``halo_exchange_left`` (point to point between processes) and runs kernel
+#3 with ``hist0``; ``halo="fused"`` runs kernel #11, which stores each
+tail into the right neighbour's receive slot from inside the kernel
+(``ops.kernels.chain_halo``; its slots are allocated once per mesh row and
+kept in ``mesh.halo_buffers``; across processes they are mapped by CUDA
+IPC, so the fused form needs every rank of a row on one host).
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from ..ops.kernels.chain import _L, fir_periodogram4096
 from ..ops.kernels.chain_halo import HaloBuffers, fir_periodogram4096_halo
@@ -48,9 +52,10 @@ def sharded_fir_periodogram4096(mesh: Mesh, x, G: torch.Tensor,
 
     halo: "ppermute" (tail copies, then kernel #3) or "fused" (kernel #11).
 
-    Returns this process's (C, 4096) accumulated power spectra of the
-    FIR-filtered signal, on the device of shard (0, 0): equal to
-    ``fir_periodogram4096(x, G)`` on one device."""
+    Returns the (C, 4096) accumulated power spectra of the FIR-filtered
+    signal of this process's rows, on the device of its shard (0, 0):
+    equal to ``fir_periodogram4096(x, G)`` on one device.  The fused form
+    raises ValueError for a row whose ranks are not all on this host."""
     if halo not in HALO_FORMS:
         raise ValueError(f"halo must be one of {HALO_FORMS}, got {halo!r}")
     D = G.shape[0]
@@ -58,24 +63,36 @@ def sharded_fir_periodogram4096(mesh: Mesh, x, G: torch.Tensor,
     grid, _ = _grid(mesh, x)
     dev0 = mesh.devices[0][0]
     rows = []
-    for i, row in enumerate(grid):
+    for i, (row, link) in enumerate(zip(grid, mesh.links)):
         if halo == "fused":
+            if link is not None and not link.one_host:
+                raise ValueError(
+                    f"halo='fused' maps kernel #11's receive slots between "
+                    f"processes by CUDA IPC, which needs every rank of a row "
+                    f"on one host; row {link.row} spans ranks "
+                    f"{list(link.ranks)} on several hosts: use "
+                    f"halo='ppermute'")
             parts = fir_periodogram4096_halo(
                 row, G, precision=precision, fir_passes=fir_passes,
-                bufs=mesh.halo_buffers.setdefault(i, HaloBuffers()))
+                bufs=mesh.halo_buffers.setdefault(i, HaloBuffers(link)))
         else:
             # the left neighbour's input tail = this shard's FIR state
-            tails = halo_exchange_left(row, H * _L)
+            tails = halo_exchange_left(row, H * _L, link)
+            first = link is None or link.left is None
             parts = []
             for t, (xs, h) in enumerate(zip(row, tails)):
-                hist0 = h.reshape(xs.shape[0], H, _L) if t > 0 else None
+                hist0 = (None if t == 0 and first
+                         else h.reshape(xs.shape[0], H, _L))
                 with on_device(xs.device):
                     parts.append(fir_periodogram4096(
                         xs, G.to(xs.device), hist0, precision, fir_passes))
-        # psum over "time": the row's partials summed on its first device
+        # psum over "time": the segment's partials summed on its first
+        # device, then over the row's group
         acc = parts[0]
         for p in parts[1:]:
             acc = acc + p.to(acc.device)
+        if link is not None:
+            dist.all_reduce(acc, group=link.group)   # gloo: CUDA all-reduce
         rows.append(acc.to(dev0))
     return torch.cat(rows, dim=0)
 

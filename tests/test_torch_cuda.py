@@ -979,6 +979,127 @@ def test_sharded_chain_across_cards(dev):
             assert rel(a, b) < TOL and bin_err(a, b) < TOL_BIN
 
 
+# -------------------------------- #11 across processes (CUDA IPC slots)
+
+_IPC_WORKER = r"""
+import sys
+import numpy as np
+import torch
+import torch.distributed as dist
+from libtsd_tpu_torch.ops.filter_rt import fir_toeplitz_mats
+from libtsd_tpu_torch.ops.fir_design import fir_lowpass
+from libtsd_tpu_torch.ops.kernels import chain, chain_halo
+from libtsd_tpu_torch.parallel import (launch, make_mesh, shard,
+                                       sharded_fir_periodogram4096)
+
+argv = sys.argv
+get = lambda k: argv[argv.index(k) + 1]
+n, pid, mode = int(get("--nproc")), int(get("--pid")), argv[1]
+cards = {"shared": [0], "own": [pid], "pair": [2 * pid, 2 * pid + 1]}[mode]
+launch.initialize(get("--coordinator"), n, pid, local_device_ids=cards)
+dev = torch.device("cuda", cards[0])
+T, k0 = n * len(cards), pid * len(cards)      # the row; this rank's first
+mesh = make_mesh(chan=1, time=T)
+link = mesh.links[0]
+assert link.transport == ("gloo" if mode == "shared" else "nccl"), link
+bufs = chain_halo.HaloBuffers(link)
+
+
+def rel(a, b):
+    return ((a.double() - b.double()).abs().max()
+            / b.double().abs().max()).item()
+
+
+def bin_err(a, b):
+    a, b = a.double(), b.double()
+    return ((a - b).abs() / (b.abs() + 1e-6 * b.abs().max())).max().item()
+
+
+G = torch.as_tensor(fir_toeplitz_mats(np.asarray(fir_lowpass(256, 0.2),
+                                                 np.float64))
+                    .astype(np.float32), device=dev)
+C, F = 3, 3
+for call in range(20):
+    # the same input on every rank (one generator, one seed a call);
+    # int16/2 then, from call 10, "highest" (the slots made anew)
+    prec = "int16" if call < 10 else "highest"
+    g = torch.Generator(device=dev).manual_seed(100 + call)
+    if prec == "int16":
+        x = torch.randint(-20000, 20001, (C, T * F * 4096), generator=g,
+                          device=dev, dtype=torch.int16)
+    else:
+        x = torch.randn(C, T * F * 4096, generator=g, device=dev)
+    xs = [c.contiguous() for c in x.chunk(T, dim=1)]
+    mine = [xs[k0 + j].to(d) for j, d in enumerate(mesh.devices[0])]
+    if call % 5 == 4:             # poison this rank's slots first
+        torch.cuda.synchronize()
+        for r in bufs.recv:
+            r.fill_(float("nan") if r.is_floating_point() else 77)
+        torch.cuda.synchronize()
+        dist.barrier()
+    ks = chain_halo.fir_periodogram4096_halo(mine, G, None, prec, 2,
+                                             bufs=bufs)
+    ps = chain_halo.fir_periodogram4096_halo_plain(xs, G, None, prec, 2)
+    assert bufs.epoch == (call % 10) + 1, (call, bufs.epoch)
+    for j, k in enumerate(ks):
+        p = ps[k0 + j].to(k.device)
+        assert bool(torch.isfinite(k).all()), call
+        assert rel(k, p) < 1e-4 and bin_err(k, p) < 1e-3, (call, rel(k, p))
+# both forms of the sharded chain on the same row, against #3 on one card
+x = torch.randint(-2048, 2048, (2, T * 8 * 4096), generator=g, device=dev,
+                  dtype=torch.int16)
+one = chain.fir_periodogram4096(x, G, precision="int16", fir_passes=2)
+xs = launch.ingest_local(mesh, x[:, launch.host_slice(mesh, "time",
+                                                      x.shape[1])])
+for halo in ("fused", "ppermute"):
+    s = sharded_fir_periodogram4096(mesh, xs, G, precision="int16",
+                                    halo=halo, fir_passes=2)
+    s = s.to(dev)
+    assert rel(s, one) < 1e-5 and bin_err(s, one) < 1e-3, halo
+print(f"rank {pid} OK", flush=True)
+dist.destroy_process_group()
+"""
+
+
+def _ipc_row(n: int, mode: str) -> None:
+    from libtsd_tpu_torch.ops.kernels import _build
+    from libtsd_tpu_torch.parallel import launch
+    _build.build()              # the workers only load the library
+    outs = launch.spawn(["-c", _IPC_WORKER, mode], n, timeout=300)
+    for p, out in enumerate(outs):
+        assert f"rank {p} OK" in out, out[-2000:]
+
+
+def test_chain_halo_across_processes_shared_card(dev):
+    """#11 with one "time" row across 2 processes on one card (the gloo
+    transport: the slot of rank 1 mapped into rank 0 by CUDA IPC, each
+    rank started after its left neighbour's kernel): 20 calls on the same
+    slots, poisoned every fifth call, int16/2 then "highest" (slots made
+    anew), each rank's spectrum against #11's plain version of the row
+    (TOL of the peak, TOL_BIN a bin); then both forms of the sharded chain
+    against #3 (1e-5 of the peak)."""
+    _ipc_row(2, "shared")
+
+
+def test_chain_halo_across_processes_one_card_each(dev):
+    """As above over 2-4 processes on a card each (the NCCL transport: a
+    row barrier on the stream each call, the neighbours' kernels side by
+    side)."""
+    n = min(torch.cuda.device_count(), 4)
+    if n < 2:
+        pytest.skip("needs two or more cards (a process a card)")
+    _ipc_row(n, "own")
+
+
+def test_chain_halo_across_processes_two_cards_each(dev):
+    """As above over 2 processes of 2 cards each: a row of 4 shards, the
+    push inside each process through a peer pointer and across the
+    processes through the IPC mapping on the segment's last card."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards (2 processes x 2 cards)")
+    _ipc_row(2, "pair")
+
+
 # ------------------------------------- the spectral, RDS and channelizer
 # paths: no kernel of their own; each is held on the card to the same port
 # call on CPU copies of its inputs (fp32 on both, other FFT and summation

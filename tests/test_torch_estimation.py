@@ -114,7 +114,8 @@ def test_psd_subspace(Ns):
     assert abs(float(gt[np.argmax(st.numpy())]) + 0.1) < 2 / 512
 
 
-def test_subspace_spectrum_custom_steering_and_default_m():
+def test_subspace_spectrum_custom_steering_and_default_m(tmp_path,
+                                                         monkeypatch):
     x = _tones(512, seed=3)
     _, st = St.psd_subspace(torch.as_tensor(x), 2, 256)      # m = 64
     _, sj = Sj.psd_subspace(jnp.asarray(x), 2, 256)
@@ -131,8 +132,13 @@ def test_subspace_spectrum_custom_steering_and_default_m():
     _, sj = Sj.subspace_spectrum(R, 2, 64, steering=steer_j)
     assert np.abs(_denom(st.numpy()) - _denom(sj)).max() \
         < TOL * _denom(sj).max()
-    with pytest.raises(NotImplementedError):
-        St.subspace_spectrum(R, -1, 64, debug=True)
+    # debug=True draws the eigenvalue and MDL figures into viz's report
+    from libtsd_tpu_torch.viz import report
+    rep = report.Report(str(tmp_path))
+    monkeypatch.setattr(report, "_report", rep)
+    _, sd = St.subspace_spectrum(R, -1, 64, debug=True, device="cpu")
+    assert [i[2] for i in rep._items if i[0] == "fig"] == ["MDL"]
+    assert torch.equal(sd, St.subspace_spectrum(R, -1, 64, device="cpu")[1])
 
 
 # ------------------------------------------------------------ DOA

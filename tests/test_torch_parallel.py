@@ -476,11 +476,6 @@ launch.initialize(addr, nproc, pid)
 launch.initialize(addr, nproc, pid)      # idempotent
 assert launch.is_distributed()
 mesh = make_mesh(chan=nproc, time=2, devices=["cpu"] * 2)
-try:
-    make_mesh(chan=1, time=4, devices=["cpu"] * 2)
-    raise SystemExit("a time row across processes did not raise")
-except NotImplementedError:
-    pass
 C, N = 2 * nproc, 2 * 8192
 rows = launch.host_slice(mesh, "chan", C)
 assert launch.host_slice(mesh, "time", N) == slice(0, N)
@@ -495,6 +490,18 @@ total = acc.double().sum()
 dist.all_reduce(total)
 print(f"proc {pid}: rows {rows.start}:{rows.stop} CHECKSUM {total.item():.12e}",
       flush=True)
+# one "time" row across the processes: each holds its half of the samples
+row = make_mesh(chan=1, time=2 * nproc, devices=["cpu"] * 2)
+assert row.links[0] is not None and row.links[0].transport == "gloo"
+ts = launch.host_slice(row, "time", N)
+assert ts == slice(pid * N // nproc, (pid + 1) * N // nproc), ts
+xrow = np.stack([np.random.default_rng(1000 + c).standard_normal(N)
+                 for c in range(2)]).astype(np.float32)[:, ts]
+for halo in ("fused", "ppermute"):
+    acc = sharded_fir_periodogram4096(row, launch.ingest_local(row, xrow), G,
+                                      precision="highest", halo=halo)
+    print(f"proc {pid}: ROW {halo} {acc.double().sum().item():.12e}",
+          flush=True)
 dist.destroy_process_group()
 """
 
@@ -503,7 +510,9 @@ def test_launch_two_processes():
     """initialize -> host_slice / ingest_local -> the sharded chain's plain
     path -> all_reduce'd checksum, in two gloo processes on localhost,
     against the same chain in this process (examples/multihost_demo.py's
-    layout: processes on "chan", two shards each on "time")."""
+    layout: processes on "chan", two shards each on "time"); then one
+    "time" row across both processes, in both halo forms, against the same
+    chain in this process."""
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
@@ -526,7 +535,7 @@ def test_launch_two_processes():
                 p.communicate()
     for p, out in zip(procs, outs):
         assert p.returncode == 0, out
-    sums = [float(o.split("CHECKSUM")[1]) for o in outs]
+    sums = [float(o.split("CHECKSUM")[1].split()[0]) for o in outs]
     assert "rows 0:2" in outs[0] and "rows 2:4" in outs[1]
     N = 2 * 8192
     x = np.stack([np.random.default_rng(1000 + c).standard_normal(N)
@@ -536,4 +545,11 @@ def test_launch_two_processes():
     ref = KC.fir_periodogram4096(t32(x), G).double().sum().item()
     for v in sums:
         assert abs(v - ref) / abs(ref) < 1e-5
+    # the time row across both processes runs, and each rank holds the
+    # row's spectrum: that of the same chain in one process
+    ref = KC.fir_periodogram4096(t32(x[:2]), G).double().sum().item()
+    for out in outs:
+        for halo in ("fused", "ppermute"):
+            v = float(out.split(f"ROW {halo}")[1].split()[0])
+            assert abs(v - ref) / abs(ref) < 1e-5, (halo, v, ref)
     assert launch.is_distributed() is False
