@@ -69,7 +69,16 @@ Builds the port's CUDA kernels from ``libtsd_tpu_torch/csrc`` into
   ``channelizer_phase``, ``rds_phase``), the protocol decoders (an ADS-B
   monitor of 64 receivers, POCSAG at three bauds: ``protocols_phase``),
   the impaired link in front of a BER sweep (``link_phase``) and the
-  estimators (DOA, MUSIC, Kalman, EKF, IMU: ``estimation_phase``).
+  estimators (DOA, MUSIC, Kalman, EKF, IMU: ``estimation_phase``);
+* the port's examples (``examples_phase``): each twin in
+  ``libtsd_tpu_torch/examples`` called through its ``main`` on the card
+  with its own gates: ``qam_serving`` at 4096 and 128 channels (#6),
+  ``serving_loop`` on the three detector engines (#9, #10; their
+  detections held to the plain engine's at the same granularity),
+  ``fm_demo`` (#4 in its Welch PSD, held to the CPU route on the same
+  band), ``iq_stream_demo``, ``protocols_demo``,
+  ``doa_demo`` and ``ber_sweep`` cut to one Eb/N0 a waveform; its counts
+  zeroed before it, and #4, #6, #9 and #10 each launched at least once.
 
 Every kernel is timed beside its plain version (CUDA events, median of 5
 runs after a warm-up, a run being as many back-to-back calls as fill 2 ms,
@@ -192,10 +201,12 @@ TOL_CQT = 1e-4         # periodogram_cqt on the card vs the CPU, of the peak
 
 # the RDS decoder (tests/test_rds.py:135-150 at full length): T_RDS s of
 # broadcast FM IF at FE_RDS, stereo tones plus 0A groups (an 8-character
-# PS name) and 2A groups (a 64-character radiotext)
-FE_RDS, T_RDS = 1.024e6, 8.0
+# PS name) and 2A groups (a 64-character radiotext); 4 s carry the 20
+# groups twice over, and the pilot PLL's per-sample loop takes ~30 s of
+# the card's time for each second of IF
+FE_RDS, T_RDS = 1.024e6, 4.0
 PS_RDS = "TSD GPU!"
-RT_RDS = "LIBTSD PORT: RDS DECODED ON THE CARD, 8 S OF FM IF AT 1.024 MHZ"
+RT_RDS = "LIBTSD PORT: RDS DECODED ON THE CARD, 4 S OF FM IF AT 1.024 MHZ"
 N_RDS_CPU = 1 << 20    # rds_baseband on the card vs the CPU on this prefix
 N_RDS_PROF = 1 << 16   # the profile window's prefix (a per-sample PLL loop)
 TOL_RDS = 1e-4         # rds_baseband card vs CPU, of the peak
@@ -279,6 +290,19 @@ MP_LAYOUTS = ((1, MP_RANKS), (2, MP_RANKS // 2))
 MP_KERNELS = ("fir_periodogram4096_halo", "fir_periodogram4096", "ola")
 MP_TIMEOUT = 420       # seconds, for the whole fleet
 MP_ROUNDS = 3
+# the examples: qam_serving at BASELINE config 5's serving width and at
+# its default; serving_loop on every detector engine; ber_sweep at
+# NBITS_BER bits and one Eb/N0 a waveform (its per-sample clock-recovery
+# loop is a Python loop of device operations): the blind-chain points of
+# tests/test_ber_sweep.py (BLIND, :98-110), measured < factor x theory +
+# BER_FLOOR; 4-FSK printed ungated, as the reference bench records it
+C_QAM_SERVE = (4096, 128)
+DET_ENGINES = ("torch", "cuda", "cuda-fused")
+NBITS_BER = 12000
+BER_GATED = {"QPSK": (4.0, 3.0), "BPSK": (6.0, 5.0), "pi4-QPSK": (8.0, 4.0),
+             "8PSK": (8.0, 4.0), "QAM16": (8.0, 3.0)}
+BER_UNGATED = {"4FSK": 10.0}
+BER_FLOOR = 6e-4
 
 # the card's published peaks (NVIDIA's H100 SXM data sheet): HBM bytes/s,
 # fp32 FLOP/s outside the tensor cores, dense bf16 FLOP/s on them
@@ -316,7 +340,8 @@ PATH_KERNELS = {"main": ("fir", "periodogram4096", "fir_periodogram4096",
                 "frame": ("ola", "detfront"),
                 "fm": ("fm_chain",),
                 "iir": ("iir_cascade",),
-                "parallel": ("fir_periodogram4096_halo",)}
+                "parallel": ("fir_periodogram4096_halo",),
+                "examples": ("fft_pow2", "demod_sb_fused", "ola", "detfront")}
 # kernels the parallel path runs under the mesh whose counts stay those of
 # their own paths: each must still launch there
 PARALLEL_ALSO = ("fir_periodogram4096", "ola")
@@ -3125,6 +3150,143 @@ def estimation_phase(seed: int, gen, dev, card: str) -> dict:
     return out
 
 
+def examples_phase(dev, card: str) -> dict:
+    """The port's examples as a user runs them: each twin's ``main`` on the
+    card, with the twin's own asserts (qam_serving: every channel's tail
+    EVM < 0.2, no bit error on the sampled channels; serving_loop: every
+    payload without a bit error, a bit-identical resume; iq_stream_demo:
+    peak within 1e-3 of DC, rejection > 40 dB; fm_demo: corr > 0.97 each
+    station; doa_demo: angles within 1 degree, MDL (2, 2) and (1, 2)), then
+    what the twins do not check themselves: qam_serving's engine
+    ("cuda-fused", #6) at C_QAM_SERVE channels; serving_loop's detections
+    on the kernel engines (#9 "cuda", #10 "cuda-fused") against the plain
+    "torch" engine's at the same granularity Ne on the same capture (the
+    same stream samples and payload bits, scores within TOL_DET); fm_demo's
+    Welch PSD (#4) against the same function on the CPU route on the same
+    band, in linear power, within TOL_F32 of its peak; protocols_demo's
+    decodes (the three published squitters at their positions with good
+    CRCs, the CPR fix within TOL_CPR, the POCSAG page exact at 1200 baud,
+    the RDS PS name and RadioText exact); ber_sweep's Eb/N0 points
+    BER_GATED (gated) and BER_UNGATED at NBITS_BER bits.  Prints each
+    twin's numbers and wall time (host clock)."""
+    from libtsd_tpu_torch.examples import (ber_sweep, doa_demo, fm_demo,
+                                           iq_stream_demo, protocols_demo,
+                                           qam_serving, serving_loop)
+    from libtsd_tpu_torch.ops.kernels import _build
+    from libtsd_tpu_torch.ops.psd import psd_welch
+    tmp = _build.BUILD_DIR.parent / "chip_smoke"
+    tmp.mkdir(parents=True, exist_ok=True)
+    print(f"examples on {card}")
+    out, wall = {}, {}
+
+    def run(name, fn):
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        wall[name] = time.perf_counter() - t0
+        print(f"time examples {name}: {wall[name]:.2f} s (host clock)")
+        out[name] = ({k: v for k, v in r.items()
+                      if k not in ("detections", "psd_db")}
+                     if isinstance(r, dict) else r)
+        return r
+
+    def gate(ok: bool, line: str) -> None:
+        print(f"check examples {line} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"examples: {line}")
+
+    for C in C_QAM_SERVE:
+        r = run(f"qam_serving C {C}", lambda C=C: qam_serving.main(C, dev))
+        gate(r["engine"] == "cuda-fused",
+             f"qam_serving C {C}: engine {r['engine']}, tail EVM mean "
+             f"{r['evm_mean']:.4f} max {r['evm_max']:.4f}, "
+             f"{r['bit_errors']} bit errors on {min(C, 4)} channels, first "
+             f"step {r['step_ms']:.2f} ms")
+    sl = {}
+    for eng in DET_ENGINES:
+        sl[eng] = run(f"serving_loop {eng}",
+                      lambda eng=eng: serving_loop.main(eng, dev))
+    for eng in DET_ENGINES[1:]:
+        k = sl[eng]
+        t = run(f"serving_loop torch Ne {k['ne']}",
+                lambda ne=k["ne"]: serving_loop.main("torch", dev, ne))
+        a, b = t["detections"], k["detections"]
+        same = (t["block_len"] == k["block_len"]
+                and [p for p, _, _ in a] == [p for p, _, _ in b]
+                and all(np.array_equal(x, y)
+                        for (_, _, x), (_, _, y) in zip(a, b)))
+        ds = max((abs(x - y) for (_, x, _), (_, y, _) in zip(a, b)),
+                 default=0.0)
+        gate(same and ds < TOL_DET,
+             f"serving_loop {eng} (#{9 if eng == 'cuda' else 10}) vs torch "
+             f"at Ne {k['ne']}, block {k['block_len']}: {len(b)} and "
+             f"{len(a)} detections, the same stream samples and payload bits"
+             f" {same}, max |dscore| {ds:.3e} (tol {TOL_DET:g})")
+    for eng, r in sl.items():
+        at = [p for p, _, _ in r["detections"]]
+        low = [(p, round(x, 4)) for p, x, _ in r["detections"] if x < 0.6]
+        print(f"examples serving_loop {eng}: Ne {r['ne']}, block "
+              f"{r['block_len']}, {len(at)} frames detected, "
+              f"{r['payloads']}/{serving_loop.NFRAMES} payloads, "
+              f"{r['bit_errors']} bit errors, {r['false_alarms']} false "
+              f"alarms, {r['msamples_per_s']:.3f} Msamp/s; detections at "
+              f"{at}, those under 0.6 {low}")
+    r = run("iq_stream_demo", lambda: iq_stream_demo.main(dev))
+    print(f"examples iq_stream_demo: peak {r['peak']:+.5f}, rejection "
+          f"{r['rejection_db']:.1f} dB, FirDecim step "
+          f"{r['firdecim_ms']:.3f} ms")
+    r = run("fm_demo", lambda: fm_demo.main(dev, str(tmp / "fm_demo"),
+                                            report=False))
+    print(f"examples fm_demo: corr {[round(c, 4) for c in r['corr']]}, PSD "
+          f"peak {r['psd_peak']:+.4f}")
+    band = fm_demo.synth_band(fm_demo.N, dev)[0].cpu()
+    check(f"examples fm_demo psd_welch(band, {fm_demo.NPSD}) (#4) vs the "
+          "CPU route on the same band, linear power",
+          10 ** (torch.as_tensor(r["psd_db"]).double() / 10),
+          10 ** (psd_welch(band, fm_demo.NPSD)[1].double() / 10), TOL_F32)
+    r = run("protocols_demo", lambda: protocols_demo.main(dev))
+    pos = [p for p, _, _ in r["adsb"]]
+    fix = r["cpr"]
+    cpr_err = (max(abs(a - b) for a, b in zip(fix, CPR_FIX))
+               if fix else float("inf"))
+    gate(pos == sorted(protocols_demo.ADSB_FRAMES)
+         and all(c for _, _, c in r["adsb"]) and "KLM1023" in r["adsb"][0][1]
+         and cpr_err < TOL_CPR,
+         f"protocols_demo ADS-B: frames at {pos}, CRCs "
+         f"{[c for _, _, c in r['adsb']]}, CPR fix {fix} err {cpr_err:.2e} "
+         f"deg (tol {TOL_CPR:g})")
+    gate(r["pocsag"] == [protocols_demo.POCSAG_PAGE] and r["baud"] == 1200,
+         f"protocols_demo POCSAG: {r['pocsag']} at {r['baud']} baud")
+    rd = r["rds"]
+    gate(rd["ps"] == "TSD TPU!" and rd["rt"] == "TPU NATIVE DSP!",
+         f"protocols_demo RDS ({rd['samples']} IF samples): {rd['groups']} "
+         f"groups, {rd['clean']} clean, PS {rd['ps']!r}, RadioText "
+         f"{rd['rt']!r}")
+    r = run("doa_demo", lambda: doa_demo.main(dev))
+    print(f"examples doa_demo: MDL {r['mdl']}, smoothed MUSIC "
+          f"{r['music_deg']} deg")
+    print(f"examples ber_sweep: reduced depth, one Eb/N0 a waveform and "
+          f"{NBITS_BER} bits (the demo sweeps 11 points of 16384 bits): "
+          "the clock-recovery loop runs one Python loop step a sample")
+    wfs = dict(ber_sweep.waveforms(dev))
+    pts = [(k, v[0]) for k, v in BER_GATED.items()] + list(
+        BER_UNGATED.items())
+    rows = run("ber_sweep", lambda: [
+        (k, s, ber_sweep.measure_ber(wfs[k], s, NBITS_BER, 1000),
+         float(wfs[k].ber(s))) for k, s in pts])
+    for name, s, b, t in rows:
+        if name in BER_GATED:
+            f = BER_GATED[name][1]
+            gate(b < f * t + BER_FLOOR,
+                 f"ber_sweep {name} {s:g} dB: measured {b:.3e} < {f:g} x "
+                 f"theory {t:.3e} + {BER_FLOOR:g}")
+        else:
+            print(f"examples ber_sweep {name} {s:g} dB: measured {b:.3e}, "
+                  f"theory {t:.3e} (ungated)")
+    out["wall_s"] = wall
+    return out
+
+
 def profile(mp, out_dir: str) -> None:
     """Optional phase: torch.profiler over 5 back-to-back calls of the
     fused int16/2 chain (with G's checked taps cached, as a caller gets
@@ -3389,13 +3551,18 @@ def main() -> int:
                          args.seed, gen, dev, card)),
                      ("link", lambda: link_phase(gen, dev, card)),
                      ("estimation", lambda: estimation_phase(
-                         args.seed, gen, dev, card))):
+                         args.seed, gen, dev, card)),
+                     ("examples", lambda: examples_phase(dev, card))):
         t_phase = time.perf_counter()
         kernels.reset_launches()
         later[name] = fn()
-        print(f"launches ({name} path, no kernel): "
-              + json.dumps({k: v for k, v in kernels.launches().items()
-                            if v}))
+        counts = {k: v for k, v in kernels.launches().items() if v}
+        want = PATH_KERNELS.get(name, ())
+        print(f"launches ({name} path{'' if want else ', no kernel'}): "
+              + json.dumps(counts))
+        if any(k not in counts for k in want):
+            raise AssertionError(f"the {name} path launched no "
+                                 f"{[k for k in want if k not in counts]}")
         torch.cuda.empty_cache()
         print(f"phase {name}: {time.perf_counter() - t_phase:.1f} s")
 

@@ -1311,3 +1311,39 @@ def test_lms_and_kalman_on_card_match_cpu(dev):
     xc, _ = kalman_filter(ssm_random_walk(), ys.to(dev))
     xh, _ = kalman_filter(ssm_random_walk(), ys)
     assert xc.device.type == "cuda" and rel(xc, xh.to(dev)) < 1e-5
+
+
+# ------------------------------------------------- the examples on the card
+
+def test_qam_serving_twin_on_card(dev):
+    """qam_serving's main at its default 128 channels: engine cuda-fused
+    (#6), every channel's tail EVM < 0.2, no bit error."""
+    from libtsd_tpu_torch.examples import qam_serving
+    r = qam_serving.main(128, dev)
+    assert r["engine"] == "cuda-fused" and r["evm_max"] < 0.2
+    assert r["bit_errors"] == 0
+
+
+def test_serving_loop_twin_on_card(dev):
+    """serving_loop's main on the fused detector (#10), with its asserts
+    (every payload without a bit error, the resume bit-identical); its
+    detections those of the "torch" engine at the same Ne: the same stream
+    samples and payload bits, scores within 5e-4."""
+    from libtsd_tpu_torch.examples import serving_loop
+    r = serving_loop.main("cuda-fused", dev)
+    assert r["payloads"] == serving_loop.NFRAMES and r["bit_errors"] == 0
+    ref = serving_loop.main("torch", dev, r["ne"])
+    assert ref["block_len"] == r["block_len"]
+    a, b = ref["detections"], r["detections"]
+    assert [p for p, _, _ in a] == [p for p, _, _ in b]
+    assert all(np.array_equal(x, y) for (_, _, x), (_, _, y) in zip(a, b))
+    assert max(abs(x - y) for (_, x, _), (_, y, _) in zip(a, b)) < 5e-4
+
+
+def test_fm_demo_twin_on_card(dev, tmp_path):
+    """fm_demo's main without its report: corr > 0.97 on every station,
+    the WAVs written."""
+    from libtsd_tpu_torch.examples import fm_demo
+    r = fm_demo.main(dev, str(tmp_path), report=False)
+    assert min(r["corr"]) > fm_demo.TOL_CORR
+    assert all((tmp_path / f"station{i}.wav").exists() for i in range(3))

@@ -14,8 +14,11 @@ from libtsd_tpu_torch.models import channel as CH
 from libtsd_tpu_torch.models import doa as D
 from libtsd_tpu_torch.models import kalman as K
 from libtsd_tpu_torch.models import lfsr as LF
+from libtsd_tpu_torch.models import pocsag as PG
+from libtsd_tpu_torch.models import rds as RDS
 from libtsd_tpu_torch.models import stats as ST
 from libtsd_tpu_torch.models.imu import ImuModel, imu_ekf
+from libtsd_tpu_torch.ops.signal import cycles
 from libtsd_tpu_torch.utils import geometry as G
 
 _rng = np.random.default_rng(5)
@@ -31,6 +34,9 @@ _Q = np.asarray([0.3, 0.1, -0.2, 0.9], np.float32)
 _Q = _Q / np.linalg.norm(_Q)
 _ROT = np.eye(3, dtype=np.float32)
 _f, _g = K.kitagawa_model()
+_BITS = _rng.integers(0, 2, 104).astype(np.uint8)
+# a POCSAG IF (host numpy, as pocsag_waveform makes it) at 38.4 kHz
+_POC = PG.pocsag_waveform(PG.pocsag_encode(1234, 3, "OK"), 38400.0, 1200)
 
 CASES = {
     "steervec_1d": lambda **kw: D.steervec_1d(_POS, _ANG, **kw),
@@ -64,6 +70,13 @@ CASES = {
                                                         **kw),
     "quat_from_cardan": lambda **kw: G.quat_from_cardan(0.1, 0.2, 0.3,
                                                         **kw),
+    # the examples' host-made inputs (protocols_demo): the RDS subcarrier
+    # and the tone ramps of the multiplex, a POCSAG IF to the decoder
+    "rds_subcarrier": lambda **kw: RDS.rds_subcarrier(_BITS, 1.024e6, 4096,
+                                                      **kw),
+    "cycles": lambda **kw: cycles(440.0 / 1.024e6, 4096, **kw),
+    "pocsag_front": lambda **kw: PG.PocsagDecoder(
+        PG.PocsagConfig(), **kw)._front(_POC),
 }
 
 

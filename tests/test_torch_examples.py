@@ -3,7 +3,9 @@ clean, on the CPU, each in its own process (slow tier, as
 tests/test_examples.py runs the JAX package's): the multi-process demo
 (4 gloo processes, both layouts and halo forms, every checksum against
 #3 in the launcher), the scaling bench at small sizes over 1, 2 and 4
-processes, and the debug-report demo writing its three reports."""
+processes, the debug-report demo writing its three reports, and the
+seven demos with their own gates (the BER sweep on two Eb/N0 points of
+2048 bits; fm_demo's and ber_sweep's reports and WAVs written)."""
 import json
 import os
 import subprocess
@@ -53,3 +55,42 @@ def test_debug_report_twin(tmp_path):
     assert "1 frame(s) decoded" in out
     for name in ("frame_rx", "demod", "fm_stereo"):
         assert (tmp_path / "rep" / name / "index.html").exists()
+
+
+# each twin with its arguments and the line its run must print
+TWINS = {
+    "qam_serving": ([], "QAM serving demo OK"),
+    "serving_loop": ([], "serving loop: 12 frames detected"),
+    "iq_stream_demo": ([], "OK"),
+    "protocols_demo": ([], "PS name:   'TSD TPU!'"),
+    "doa_demo": ([], "OK: smoothing restored"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TWINS))
+def test_demo_twin(name, tmp_path):
+    args, line = TWINS[name]
+    out = _run([f"libtsd_tpu_torch.examples.{name}", "--device", "cpu",
+                *args], tmp_path)
+    assert any(l.strip().startswith(line) for l in out.splitlines()), \
+        out[-2000:]
+
+
+def test_fm_demo_twin_report(tmp_path):
+    rep = tmp_path / "fm"
+    out = _run(["libtsd_tpu_torch.examples.fm_demo", "--device", "cpu",
+                "--report", str(rep)], tmp_path)
+    assert f"report: {rep / 'index.html'}" in out
+    for f in ("index.html", "station0.wav", "station1.wav", "station2.wav"):
+        assert (rep / f).exists(), f
+
+
+def test_ber_sweep_twin_report(tmp_path):
+    rep = tmp_path / "ber"
+    out = _run(["libtsd_tpu_torch.examples.ber_sweep", "--device", "cpu",
+                "--nbits", "2048", "--snrs", "4,8", "--report", str(rep)],
+               tmp_path)
+    rows = [l.split() for l in out.splitlines()
+            if l.split() and l.split()[0] in ("BPSK", "QPSK", "pi4-QPSK",
+                                              "8PSK", "QAM16", "4FSK")]
+    assert len(rows) == 12 and (rep / "index.html").exists()
