@@ -50,6 +50,7 @@ from ..ops.filter_rt import Fir
 from ..ops.iir_design import lexp_tc_to_coef
 from ..ops.kernels import demod_sb as KSB
 from ..ops.resample import make_interpolator
+from ..utils.monitor import span, spanned
 from .carrier_rec import LoopFilter2
 from .demod_dec import DecDemodConfig
 from .waveform import symbol_indices_to_bits
@@ -221,6 +222,7 @@ class DecisionDemodSB(Block):
                 "(use engine='auto' or 'cuda' for single-stream input)")
         return self._step_1d(state, x)
 
+    @spanned("tsd.demod_sb.outputs")
     def _outputs(self, sidx, valid):
         k = self.wf.info.k
         return symbol_indices_to_bits(sidx, k), valid.repeat_interleave(
@@ -249,9 +251,10 @@ class DecisionDemodSB(Block):
                                zp.imag.to(torch.bfloat16).to(real_dtype))
         y, sidx, valid, st8 = KSB.demod_sb(
             zk, pack_state(state), self.wf.symbols, self.loop_params(n))
-        # a copy, so that the state does not keep the whole of zp alive
-        new_state = dict(_unpack(st8, n), mf=mf_state,
-                         tail=zp[:, n:n + self.T].clone())
+        with span("tsd.demod_sb.carry"):
+            # a copy, so that the state does not keep the whole of zp alive
+            new_state = dict(_unpack(st8, n), mf=mf_state,
+                             tail=zp[:, n:n + self.T].clone())
         bits, bvalid = self._outputs(sidx, valid)
         return new_state, (bits, y, valid, bvalid)
 
@@ -264,9 +267,10 @@ class DecisionDemodSB(Block):
         y, sidx, valid, st9 = KSB.demod_sb_fused(
             x, state["xtail"], st9, self.wf.symbols, self.h_mf,
             self.loop_params(n), self.rms_ref)
-        xoff = state["xtail"].shape[-1]
-        new_state = dict(_unpack(st9, n), p_ema=st9[8],
-                         xtail=x[:, n - xoff:].clone())
+        with span("tsd.demod_sb.carry"):
+            xoff = state["xtail"].shape[-1]
+            new_state = dict(_unpack(st9, n), p_ema=st9[8],
+                             xtail=x[:, n - xoff:].clone())
         bits, bvalid = self._outputs(sidx, valid)
         return new_state, (bits, y, valid, bvalid)
 
@@ -367,6 +371,7 @@ class DecisionDemodSB(Block):
         return new_state, (bits, syms, valid, bvalid)
 
 
+@spanned("tsd.demod_sb.pack_state")
 def pack_state(state) -> torch.Tensor:
     """A batched state's loop part as the kernels' rows: (8, C), or
     (9, C) with the power EMA for the fused layout."""

@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import complex_dtype, device as _device, real_dtype
+from ..utils.monitor import spanned
 from .kernels.fft import NMAX, NMIN, FftPow2
 
 __all__ = ["fft", "ifft", "rfft", "irfft", "fftshift", "ifftshift",
@@ -68,6 +69,7 @@ def _fft_dispatch(x: torch.Tensor, n: Optional[int], axis: int, engine: str,
     return f(x.to(complex_dtype), dim=axis)
 
 
+@spanned("tsd.fft.fft")
 def fft(x: torch.Tensor, n: Optional[int] = None, axis: int = -1,
         engine: str = "auto") -> torch.Tensor:
     """Orthonormal forward DFT.  ``n`` pads or truncates first."""

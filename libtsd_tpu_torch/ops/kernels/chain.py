@@ -55,6 +55,7 @@ import weakref
 
 import torch
 
+from ...utils.monitor import spanned
 from ..filter_rt import _fir_frames, fir_toeplitz_mats
 from . import _build
 from .fft import twiddles
@@ -218,6 +219,7 @@ def fir_periodogram4096_plain(x: torch.Tensor, G: torch.Tensor,
     return periodogram4096_plain(y)
 
 
+@spanned("tsd.kernels.fir_periodogram4096")
 def fir_periodogram4096(x: torch.Tensor, G: torch.Tensor,
                         hist0: torch.Tensor | None = None,
                         precision: str = "highest",

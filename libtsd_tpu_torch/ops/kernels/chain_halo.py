@@ -55,6 +55,7 @@ from typing import Sequence
 import torch
 import torch.distributed as dist
 
+from ...utils.monitor import span, spanned
 from . import _build
 from .chain import (_L, _DTYPE_CODE, _history, _ingest, aligned,
                     fir_periodogram4096_plain, kernel_taps)
@@ -308,6 +309,7 @@ def _order_after(bufs: HaloBuffers, devices: list, epoch: int) -> None:
         dist.barrier(group=link.group)
 
 
+@spanned("tsd.kernels.fir_periodogram4096_halo")
 def fir_periodogram4096_halo(xs: Sequence[torch.Tensor], G: torch.Tensor,
                              hist0: torch.Tensor | None = None,
                              precision: str = "highest",
@@ -354,7 +356,8 @@ def fir_periodogram4096_halo(xs: Sequence[torch.Tensor], G: torch.Tensor,
     bufs.epoch += 1
     epoch, s = bufs.epoch & 0xFFFFFFFF, bufs.epoch & 1
     if link is not None:
-        _order_before(bufs, devices, epoch)
+        with span("tsd.parallel.order"):
+            _order_before(bufs, devices, epoch)
     to_right = link is not None and link.right is not None
     null = ctypes.c_void_p(None)
     outs, started = [], None

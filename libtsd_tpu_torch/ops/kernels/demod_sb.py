@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from ...config import complex_dtype, real_dtype
+from ...utils.monitor import spanned
 from . import _build
 
 __all__ = ["LoopParams", "ITRP", "APW", "pick_tb", "fused_layout",
@@ -486,6 +487,7 @@ def demod_sb(zp: torch.Tensor, state8: torch.Tensor, sym: torch.Tensor,
 demod_sb.launches = 0
 
 
+@spanned("tsd.kernels.demod_sb_fused")
 def demod_sb_fused(x: torch.Tensor, xtail: torch.Tensor,
                    state9: torch.Tensor, sym: torch.Tensor,
                    h_mf: torch.Tensor, p: LoopParams, rms_ref: float):

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from . import _build
+from ...utils.monitor import spanned
 
 __all__ = ["fft_pow2", "ifft_pow2", "fft_pow2_plain", "FftPow2",
            "twiddle_plan", "twiddle_table", "twiddles"]
@@ -91,6 +92,7 @@ def fft_pow2_plain(xr: torch.Tensor, xi: torch.Tensor, inverse: bool = False,
     return y.real.contiguous(), y.imag.contiguous()
 
 
+@spanned("tsd.kernels.fft_pow2")
 def fft_pow2(xr: torch.Tensor, xi: torch.Tensor, inverse: bool = False,
              precision: str = "highest"):
     """Batched nfft-point (I)FFT of complex data given as re/im planes.

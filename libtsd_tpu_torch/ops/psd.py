@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import complex_dtype, device as _device, real_dtype
+from ..utils.monitor import span
 from .fft import fft as _fft, fftshift
 from .window import window as _window
 
@@ -69,9 +70,12 @@ def psd_welch(x: torch.Tensor, N: int,
     # starts 0, N/2, ... below n - N (the start n - N itself is left out,
     # as in the reference); [0] when n == N
     nseg = max(len(range(0, n - N, N // 2)), 1)
-    S = torch.sum(_power(_fft(_segments(x, N, N // 2, nseg)
-                              * _win(fen, N, x.device))), dim=-2)
-    return psd_freqs(N, device=x.device), 10.0 * torch.log10(S + 1e-30)
+    with span("tsd.psd.frame"):
+        frames = _segments(x, N, N // 2, nseg) * _win(fen, N, x.device)
+    X = _fft(frames)
+    with span("tsd.psd.reduce"):
+        S = torch.sum(_power(X), dim=-2)
+        return psd_freqs(N, device=x.device), 10.0 * torch.log10(S + 1e-30)
 
 
 def periodogram_dft(x: torch.Tensor, N: int) -> torch.Tensor:

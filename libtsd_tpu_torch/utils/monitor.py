@@ -7,11 +7,17 @@ core/include/tsd/moniteur-cpu.hpp:10-38.  The reference tracks per-thread
 CPU time; here scopes measure wall time around device work (synchronising
 the device of the result for honest accounting) and expose samples/s --
 the shape of the `moniteurs()` API is preserved (SURVEY §5.1).
+
+:func:`span` names a phase of the port's own work for traces.  Spans are
+on exactly while a ``torch.profiler`` session records, and cost one flag
+read otherwise; :func:`profiler_trace` is the operator's way to get them,
+with the device's activity on the same clock.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import os
 import time
 from typing import Dict, Optional
@@ -21,7 +27,7 @@ import torch
 from ..block import tree_flatten
 
 __all__ = ["Monitor", "Monitors", "MonitorStats", "block_until_ready",
-           "profiler_trace"]
+           "profiler_trace", "span", "spanned"]
 
 
 def block_until_ready(tree):
@@ -139,3 +145,60 @@ def profiler_trace(logdir: str):
         if torch.cuda.is_available():
             torch.cuda.synchronize()
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+_NULL = contextlib.nullcontext()
+_profiler = torch.autograd.profiler
+# the range that ``torch.profiler.record_function`` opens, without the two
+# operator calls around it (which the profiler records too): about a third
+# of its cost under the profiler
+_enter = torch.autograd._record_function_with_args_enter
+_exit = torch.autograd._record_function_with_args_exit
+
+
+def span(name: str):
+    """A named phase of the port's work (the port's names start with
+    ``tsd.``), as a context manager.
+
+    Off -- whenever no ``torch.profiler`` session records -- it is one
+    shared null context: a flag read and a call.  On, it is the range that
+    ``torch.profiler.record_function(name)`` opens: the trace holds it as a
+    ``user_annotation`` on the clock of the device's events, and, with
+    CUDA activity recorded, as a ``gpu_user_annotation`` over the device
+    work launched inside it.  It records nothing else and never waits for
+    the device."""
+    if not _profiler._is_profiler_enabled:
+        return _NULL
+    return _Span(name)
+
+
+def spanned(name: str):
+    """Decorator: the whole of each call of the function is :func:`span`
+    ``name``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            if not _profiler._is_profiler_enabled:
+                return fn(*args, **kwargs)
+            h = _enter(name)
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                _exit(h)
+        return call
+    return wrap
+
+
+class _Span:
+    __slots__ = ("name", "h")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.h = _enter(self.name)
+        return self
+
+    def __exit__(self, *exc):
+        _exit(self.h)
+        return False
