@@ -8,8 +8,8 @@ Builds the port's CUDA kernels from ``libtsd_tpu_torch/csrc`` into
 
 * the spectral main path (256 channels x 2^22 int16 samples: 256-tap
   lowpass FIR -> 4096-point periodogram, fused, composed and streamed, plus
-  a Welch PSD), with kernels #1-#4 each checked against its plain PyTorch
-  version;
+  a Welch PSD), with kernels #1-#4 and Welch's two passes around #4
+  (framing, power sum) each checked against its plain PyTorch version;
 * the QAM-16 receive path: 4096 channels made on the card by the port's
   modulator (RRC 0.25, osf 4, 8 fractional delays, independent noise),
   demodulated by ``DecisionDemodSB`` over 8 steps of 8192 samples with
@@ -85,12 +85,13 @@ runs after a warm-up, a run being as many back-to-back calls as fill 2 ms,
 at most 50), beside the least time the card could take for the same
 work (its share of that bound is printed beside it; #2 also at one
 channel) and, where one PyTorch call computes the same function, that
-call's time.  Each path runs with the launch counts set to 0 just before
-it and read just after; a kernel of a path that was not launched fails the
-run.  Any failure raises and exits non-zero.  Without a CUDA device it
-exits 1 and prints no result.  ``--profile DIR`` adds ``torch.profiler``
-windows over the fused and composed main path, the main path's
-``psd_welch`` (#4) and one step of each QAM engine, of each frame-receiver
+call's time (Welch's two passes on the ``spectral.welch4`` cell's block).
+Each path runs with the launch counts set to 0 just before it and read
+just after; a kernel of a path that was not launched fails the run.  Any
+failure raises and exits non-zero.  Without a CUDA device it exits 1 and
+prints no result.  ``--profile DIR`` adds ``torch.profiler`` windows over
+the fused and composed main path, the main path's ``psd_welch`` (#4 and
+the two passes) and one step of each QAM engine, of each frame-receiver
 engine, of both sharded chain forms and of the config-3 chain (device
 busy time, idle share, top kernels; chrome traces into DIR).
 
@@ -125,6 +126,10 @@ TOL_TIER = 1e-2                    # across tiers that round taps or x to bf16
 # float64 gives ~2e-5 per bin there (CPU tests); zeroing a bin gives ~1.
 FLOOR = 1e-6
 TOL_BIN = 1e-3
+# Welch's passes: the framing rounds as its plain version (equal bit for
+# bit); the power sum adds in another order than PyTorch's, held in dB
+TOL_WELCH_DB = 1e-3
+WELCH4 = (4, 1 << 26)              # the spectral.welch4 cell's block
 
 # the QAM-16 receive path (examples/qam_serving.py at full width)
 C_QAM, N_QAM, STEPS_QAM = 4096, 8192, 8
@@ -333,15 +338,21 @@ KERNELS = {   # wrapper name -> (source, the Pallas call it replaces)
                  "libtsd_tpu/ops/pallas/fm.py:289"),
     "fir_periodogram4096_halo": ("libtsd_tpu_torch/csrc/chain_halo.cu",
                                  "libtsd_tpu/ops/pallas/chain.py:362"),
+    # no Pallas call: the XLA glue around #4 in the JAX psd_welch
+    "welch_frames": ("libtsd_tpu_torch/csrc/welch.cu",
+                     "libtsd_tpu/ops/psd.py:48 (framing, window)"),
+    "welch_power": ("libtsd_tpu_torch/csrc/welch.cu",
+                    "libtsd_tpu/ops/psd.py:48 (|X|^2, sum, fftshift, dB)"),
 }
 PATH_KERNELS = {"main": ("fir", "periodogram4096", "fir_periodogram4096",
-                         "fft_pow2"),
+                         "fft_pow2", "welch_frames", "welch_power"),
                 "qam": ("demod_sb", "demod_sb_fused"),
                 "frame": ("ola", "detfront"),
                 "fm": ("fm_chain",),
                 "iir": ("iir_cascade",),
                 "parallel": ("fir_periodogram4096_halo",),
-                "examples": ("fft_pow2", "demod_sb_fused", "ola", "detfront")}
+                "examples": ("fft_pow2", "demod_sb_fused", "ola", "detfront",
+                             "welch_frames", "welch_power")}
 # kernels the parallel path runs under the mesh whose counts stay those of
 # their own paths: each must still launch there
 PARALLEL_ALSO = ("fir_periodogram4096", "ola")
@@ -395,6 +406,23 @@ def check(name: str, a: torch.Tensor, b: torch.Tensor, tol: float,
         line += f" bin_err={rb:.3e} tol_bin={TOL_BIN:g} floor={FLOOR:g}"
         ok = ok and rb < TOL_BIN
     print(f"{line} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: out of tolerance")
+    return d
+
+
+def check_abs(name: str, a: torch.Tensor, b: torch.Tensor,
+              atol: float) -> float:
+    """Hold a against b: largest |a-b| below atol, or, with atol 0, equal
+    bit for bit.  Returns the max absolute error."""
+    if a.shape != b.shape or not torch.isfinite(a).all():
+        raise AssertionError(f"{name}: shape {tuple(a.shape)} vs "
+                             f"{tuple(b.shape)}, or non-finite values")
+    d = (a.double() - b.double()).abs().max().item()
+    ok = torch.equal(a, b) if atol == 0 else d < atol
+    print(f"check {name}: max_abs_err={d:.6e} "
+          + ("bit-equal" if atol == 0 else f"tol={atol:g}")
+          + f" {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name}: out of tolerance")
     return d
@@ -524,6 +552,43 @@ def kernel_checks(h, G, gen, dev) -> dict:
     check("#4 FftPow2 gradient vs torch.fft (n=16384)",
           torch.view_as_real(gk), torch.view_as_real(gp), TOL_F32)
     err["fft_pow2"] = max(errs)
+    err.update(welch_checks(gen, dev))
+    return err
+
+
+def welch_checks(gen, dev) -> dict:
+    """Welch's two passes around #4 against their plain versions, real and
+    complex input, at the main path's Welch block (4 x 2^22) and at the
+    ``spectral.welch4`` cell's (4 x 2^26): the framing bit for bit, the
+    power sum within TOL_WELCH_DB dB and bit-identical on a second call."""
+    from libtsd_tpu_torch.ops import psd
+    from libtsd_tpu_torch.ops.kernels import fft, welch
+    err = {"welch_frames": 0.0, "welch_power": 0.0}
+    w = psd._win("hn", NFFT, dev)
+    for C, n in ((4, N_MAIN), WELCH4):
+        nseg = len(range(0, n - NFFT, NFFT // 2))
+        for dt in (torch.float32, torch.complex64):
+            x = torch.randn(C, n, generator=gen, device=dev, dtype=dt)
+            what = f"{C} x 2^{n.bit_length() - 1} {str(dt)[6:]}"
+            re, im = welch.welch_frames(x, w, NFFT, nseg)
+            for k, (a, b) in enumerate(zip(
+                    (re, im), welch.welch_frames_plain(x, w, NFFT, nseg))):
+                err["welch_frames"] = max(err["welch_frames"], check_abs(
+                    f"welch_frames {what} {('re', 'im')[k]} plane vs plain",
+                    a, b, 0))
+            del x
+            torch.cuda.empty_cache()
+            yr, yi = fft.fft_pow2(re, im)
+            del re, im
+            S = welch.welch_power(yr, yi, C, nseg, NFFT)
+            err["welch_power"] = max(err["welch_power"], check_abs(
+                f"welch_power {what} vs plain, dB", S,
+                welch.welch_power_plain(yr, yi, C, nseg, NFFT),
+                TOL_WELCH_DB))
+            check_abs(f"welch_power {what}: a second call", S,
+                      welch.welch_power(yr, yi, C, nseg, NFFT), 0)
+            del yr, yi
+            torch.cuda.empty_cache()
     return err
 
 
@@ -681,6 +746,43 @@ def timings(h, mp, dev) -> dict:
     for name, (k, p, n) in t.items():
         print(f"time {name}: kernel {k:.4f} ms ({n / k / 1e3:.1f} Msamples/s)"
               f" plain {p:.4f} ms ({n / p / 1e3:.1f} Msamples/s)")
+    return t
+
+
+def welch_timings(dev) -> dict:
+    """Welch's two passes beside their plain versions on the
+    ``spectral.welch4`` cell's block (4 x 2^26 float32), and their bounds:
+    the framing reads the input once and writes two float32 planes of C
+    nseg N values; the power pass reads the planes once and writes C N
+    values.  Returns {name: (kernel ms, plain ms, bound ms, bound by,
+    library ms: none)}."""
+    from libtsd_tpu_torch.ops import psd
+    from libtsd_tpu_torch.ops.kernels import fft, welch
+    C, n = WELCH4
+    x = torch.randn(C, n, generator=torch.Generator(device=dev).manual_seed(19),
+                    device=dev)
+    nseg = len(range(0, n - NFFT, NFFT // 2))
+    rows = C * nseg
+    w = psd._win("hn", NFFT, dev)
+    re, im = welch.welch_frames(x, w, NFFT, nseg)
+    t = {"welch_frames": (
+        time_ms(lambda: welch.welch_frames(x, w, NFFT, nseg)),
+        time_ms(lambda: welch.welch_frames_plain(x, w, NFFT, nseg)),
+        *bound(4 * C * (nseg + 1) * (NFFT // 2) + 8 * rows * NFFT,
+               rows * NFFT), None)}
+    del x
+    yr, yi = fft.fft_pow2(re, im)
+    del re, im
+    torch.cuda.empty_cache()
+    t["welch_power"] = (
+        time_ms(lambda: welch.welch_power(yr, yi, C, nseg, NFFT)),
+        time_ms(lambda: welch.welch_power_plain(yr, yi, C, nseg, NFFT)),
+        *bound(8 * rows * NFFT + 4 * C * NFFT, 4 * rows * NFFT), None)
+    del yr, yi
+    torch.cuda.empty_cache()
+    for name, (k, p, bms, by, _) in t.items():
+        print(f"time {name} ({C} x 2^{n.bit_length() - 1}): kernel {k:.4f} "
+              f"ms, plain {p:.4f} ms, bound {bms:.4f} ms by {by}")
     return t
 
 
@@ -3399,6 +3501,7 @@ def main() -> int:
         errs[k] = max(errs[k], d)
     t = timings(h, mp, dev)
     extra = main_bounds_and_library(h, mp, dev)
+    welch_t = welch_timings(dev)
     if args.profile:
         profile(mp, args.profile)
     del mp
@@ -3415,6 +3518,7 @@ def main() -> int:
                      if k in PATH_KERNELS["qam"]})
     errs.update(qam_checks(wf, bits, xq, qp))
     tq = qam_timings(xq, qp)
+    tq.update(welch_t)
     if args.profile:
         xb = xq[:, :N_QAM]
         profile_windows({

@@ -7,7 +7,7 @@ launches the kernel or raises.  Each wrapper counts its launches in a plain
 integer attribute, ``wrapper.launches``.
 """
 from . import (chain, chain_halo, demod_sb, detfront, fft, fir,  # noqa: F401
-               fm, iir, ola, periodogram)
+               fm, iir, ola, periodogram, welch)
 
 WRAPPERS = {
     "fir": fir.fir_kernel,
@@ -21,6 +21,8 @@ WRAPPERS = {
     "iir_cascade": iir.iir_cascade,
     "fm_chain": fm.fm_chain,
     "fir_periodogram4096_halo": chain_halo.fir_periodogram4096_halo,
+    "welch_frames": welch.welch_frames,
+    "welch_power": welch.welch_power,
 }
 
 

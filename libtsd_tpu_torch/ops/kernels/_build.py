@@ -65,6 +65,8 @@ SIGNATURES = {
     "chain_halo_ipc_open": [I, P, PP],
     "chain_halo_ipc_close": [I, P],
     "chain_halo_ipc_free": [I, P],
+    "welch_frames_f32": [P, P, P, P, I, I64, I, I, I, P],
+    "welch_power_f32": [P, P, P, P, I, I, I, I, I, P],
 }
 
 _lock = threading.Lock()

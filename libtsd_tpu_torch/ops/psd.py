@@ -5,9 +5,15 @@ time/frequency matrix.  Orthonormal FFT (``ops.fft``, so power-of-two CUDA
 frames go through the FFT kernel), fftshifted bins, dB where the reference
 outputs dB.  ``freq_estim`` takes ``torch.fft`` directly, as the JAX
 package takes ``jnp.fft``.
+
+``psd_welch`` on the FFT kernel's route (float32 or complex64 input) runs
+three hand-written passes and nothing else on the frame matrix: framing
+(``ops.kernels.welch``), the FFT kernel on its planes, and the power sum
+in dB.  Segment windows are made once per (fen, N, device).
 """
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -15,17 +21,28 @@ import torch
 import torch.nn.functional as F
 
 from ..config import complex_dtype, device as _device, real_dtype
-from ..utils.monitor import span
+from . import fft as _fftmod
 from .fft import fft as _fft, fftshift
+from .kernels import welch as _welch
+from .kernels.fft import fft_pow2
 from .window import window as _window
 
 __all__ = ["psd_freqs", "psd", "psd_welch", "periodogram_dft", "spectrogram",
            "freq_estim", "periodogram_cqt"]
 
 
-def _win(fen: str, n: int, device) -> torch.Tensor:
+def _make_win(fen: str, n: int, device) -> torch.Tensor:
     return torch.as_tensor(_window(fen, n, sym=False), dtype=real_dtype,
                            device=device)
+
+
+_cached_win = functools.lru_cache(maxsize=16)(_make_win)
+
+
+def _win(fen: str, n: int, device) -> torch.Tensor:
+    """A segment's periodic window, made once per (fen, n, device); the
+    16 last used are kept."""
+    return _cached_win(fen, n, torch.device(device))
 
 
 def _power(X: torch.Tensor) -> torch.Tensor:
@@ -49,7 +66,8 @@ def psd_freqs(n: int, complex_input: bool = True,
 def psd(x: torch.Tensor, fen: str = "hn") -> Tuple[torch.Tensor, torch.Tensor]:
     """Windowed correlogram PSD of the whole signal, in dB, fftshifted."""
     n = x.shape[-1]
-    S = _power(_fft(x * _win(fen, n, x.device)))
+    # the whole signal's window, made anew: a cache would keep one a length
+    S = _power(_fft(x * _make_win(fen, n, x.device)))
     return psd_freqs(n, device=x.device), 10.0 * torch.log10(S + 1e-30)
 
 
@@ -62,7 +80,9 @@ def _segments(x: torch.Tensor, N: int, hop: int, count: int) -> torch.Tensor:
 def psd_welch(x: torch.Tensor, N: int,
               fen: str = "hn") -> Tuple[torch.Tensor, torch.Tensor]:
     """Welch PSD: 50%-overlapping windowed segments of length N, SUMMED
-    (as the reference does), in dB."""
+    (as the reference does), in dB.  On the FFT kernel's route (float32 or
+    complex64 x that needs no gradient) the three kernel passes compute
+    it; any other x takes the composed tensor ops."""
     n = x.shape[-1]
     if n < N:
         x = F.pad(x, (0, N - n))
@@ -70,12 +90,24 @@ def psd_welch(x: torch.Tensor, N: int,
     # starts 0, N/2, ... below n - N (the start n - N itself is left out,
     # as in the reference); [0] when n == N
     nseg = max(len(range(0, n - N, N // 2)), 1)
-    with span("tsd.psd.frame"):
-        frames = _segments(x, N, N // 2, nseg) * _win(fen, N, x.device)
-    X = _fft(frames)
-    with span("tsd.psd.reduce"):
-        S = torch.sum(_power(X), dim=-2)
-        return psd_freqs(N, device=x.device), 10.0 * torch.log10(S + 1e-30)
+    frames = _segments(x, N, N // 2, nseg)
+    if (x.dtype in (torch.float32, complex_dtype)
+            and _fftmod._kernel_eligible(frames, -1)
+            and not (x.requires_grad and torch.is_grad_enabled())):
+        return psd_freqs(N, device=x.device), _welch_kernels(x, N, nseg, fen)
+    S = torch.sum(_power(_fft(frames * _win(fen, N, x.device))), dim=-2)
+    return psd_freqs(N, device=x.device), 10.0 * torch.log10(S + 1e-30)
+
+
+def _welch_kernels(x: torch.Tensor, N: int, nseg: int,
+                   fen: str) -> torch.Tensor:
+    """psd_welch's dB on the kernels: framing into #4's planes, #4, the
+    power sum; leading dimensions flattened into channels."""
+    xc = x.reshape(-1, x.shape[-1]).resolve_conj().contiguous()
+    re, im = _welch.welch_frames(xc, _win(fen, N, x.device), N, nseg)
+    yr, yi = fft_pow2(re, im)
+    S = _welch.welch_power(yr, yi, xc.shape[0], nseg, N)
+    return S.reshape(*x.shape[:-1], N)
 
 
 def periodogram_dft(x: torch.Tensor, N: int) -> torch.Tensor:

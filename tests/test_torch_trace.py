@@ -1,9 +1,9 @@
 """The port's spans (``utils.monitor.span``): off, one shared null context
 that records nothing; under ``torch.profiler``, the paths of the
 benchmark's one-card cells -- ``DecisionDemodSB.step`` on the
-``cuda-fused`` engine, ``psd_welch`` on the FFT kernel's route and
-``fir_periodogram4096`` -- emit their ``tsd.`` spans as
-``user_annotation`` events, nested as their calls are, once a step, at
+``cuda-fused`` engine, ``psd_welch`` on the FFT kernel's route (its three
+kernel wrappers) and ``fir_periodogram4096`` -- emit their ``tsd.`` spans
+as ``user_annotation`` events, nested as their calls are, once a step, at
 most five a step, with outputs bit for bit those of an untraced run.
 The CPU runs each kernel's plain version under the same wrapper, so the
 spans are the card's; on the card each span also covers its device work
@@ -67,8 +67,8 @@ def _chain(dev):
 
 
 # each path's spans, with the port span each one sits in: the model's
-# phases and #6's wrapper; the Welch passes, with #4's wrapper in the FFT;
-# #3's wrapper alone
+# phases and #6's wrapper; the Welch route's three wrappers (framing, #4,
+# the power sum); #3's wrapper alone
 PATHS = {
     "demod_sb": (_demod, {
         "tsd.demod_sb.pack_state": None,
@@ -76,10 +76,9 @@ PATHS = {
         "tsd.demod_sb.carry": None,
         "tsd.demod_sb.outputs": None}),
     "psd_welch": (_welch, {
-        "tsd.psd.frame": None,
-        "tsd.fft.fft": None,
-        "tsd.kernels.fft_pow2": "tsd.fft.fft",
-        "tsd.psd.reduce": None}),
+        "tsd.kernels.welch_frames": None,
+        "tsd.kernels.fft_pow2": None,
+        "tsd.kernels.welch_power": None}),
     "fir_periodogram4096": (_chain, {
         "tsd.kernels.fir_periodogram4096": None}),
 }
@@ -228,29 +227,39 @@ def dev():
 def test_spans_cover_their_device_work_on_the_card(dev, path):
     """On the card: each span once a step on the host and once a step on
     the device (``gpu_user_annotation``), a wrapper's spans as many as its
-    launches, its kernel inside its device span, and the outputs of an
+    launches, its kernels inside its device span, and the outputs of an
     untraced run."""
-    from libtsd_tpu_torch.ops.kernels import chain, demod_sb, fft
-    wrapper, kernel = {
-        "demod_sb": (demod_sb.demod_sb_fused, "demod_sb_fused_kernel"),
-        "psd_welch": (fft.fft_pow2, "fft_kernel"),
-        "fir_periodogram4096": (chain.fir_periodogram4096, "chain_kernel"),
+    from libtsd_tpu_torch.ops.kernels import chain, demod_sb, fft, welch
+    # each wrapper's span, the wrapper and the kernels it launches
+    wrappers = {
+        "demod_sb": [("tsd.kernels.demod_sb_fused", demod_sb.demod_sb_fused,
+                      ["demod_sb_fused_kernel"])],
+        "psd_welch": [
+            ("tsd.kernels.welch_frames", welch.welch_frames,
+             ["welch_frames_kernel"]),
+            ("tsd.kernels.fft_pow2", fft.fft_pow2, ["fft_kernel"]),
+            ("tsd.kernels.welch_power", welch.welch_power,
+             ["welch_partial_kernel", "welch_db_kernel"])],
+        "fir_periodogram4096": [("tsd.kernels.fir_periodogram4096",
+                                 chain.fir_periodogram4096,
+                                 ["chain_kernel"])],
     }[path]
     off, _ = _run(path, dev, False)
-    before = wrapper.launches
+    before = [w.launches for _, w, _ in wrappers]
     on, ev = _run(path, dev, True)
     want = {n: STEPS for n in PATHS[path][1]}
     assert dict(Counter(n for n, _, _ in _spans(ev))) == want
     on_dev = _spans(ev, "gpu_user_annotation")
     assert dict(Counter(n for n, _, _ in on_dev)) == want
-    kname = [n for n in want if n.startswith("tsd.kernels.")][0]
-    assert wrapper.launches - before == STEPS
-    kernels = [(e["ts"], e["dur"]) for e in ev if e.get("cat") == "kernel"
-               and kernel in e["name"]]
-    assert len(kernels) == STEPS
-    for (s, d), (_, ws, wd) in zip(kernels, [x for x in on_dev
-                                              if x[0] == kname]):
-        assert ws <= s and s + d <= ws + wd + 1
+    for (kname, wrapper, names), b in zip(wrappers, before):
+        assert wrapper.launches - b == STEPS
+        for kernel in names:
+            kernels = [(e["ts"], e["dur"]) for e in ev
+                       if e.get("cat") == "kernel" and kernel in e["name"]]
+            assert len(kernels) == STEPS
+            for (s, d), (_, ws, wd) in zip(kernels, [x for x in on_dev
+                                                      if x[0] == kname]):
+                assert ws <= s and s + d <= ws + wd + 1
     for a, b in zip(off, on):
         for u, v in zip(a, b):
             assert torch.equal(u, v)
