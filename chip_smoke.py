@@ -14,8 +14,10 @@ Builds the port's CUDA kernels from ``libtsd_tpu_torch/csrc`` into
   modulator (RRC 0.25, osf 4, 8 fractional delays, independent noise),
   demodulated by ``DecisionDemodSB`` over 8 steps of 8192 samples with
   the ``"cuda"`` engine (kernel #5) and the ``"cuda-fused"`` engine
-  (kernel #6); tail EVM on every channel, bit errors after warm-up on
-  sampled channels, each kernel against its plain version;
+  (kernel #6, one launch a step); tail EVM on every channel, bit errors
+  after warm-up on sampled channels, each kernel against its plain
+  version, #6's step epilogue too at ``qam_serving``'s 4096 and 128
+  channels;
 * the frame receiver: 64 channels of QPSK frames (RRC 0.25, osf 4, a
   64-bit header, distinct 256-bit payloads, one frame every 8,000 samples
   so that frames straddle block edges) made on the card by the port's
@@ -980,6 +982,47 @@ def qam_checks(wf, bits, x, qp) -> dict:
             del args
             torch.cuda.empty_cache()
     return err
+
+
+def qam_step_checks(x, qp) -> None:
+    """The fused engine's step route (#6 with its epilogue, one launch)
+    against its plain version on the same inputs, bit for bit: bits, bit
+    flags, y, valid, the nine state rows (pointer re-based) and the input
+    tail, at qam_serving's channel counts C_QAM_SERVE, from the state the
+    path carried into its middle step; and the path's steps all on that
+    route (DecisionDemodSB's route counters)."""
+    from libtsd_tpu_torch.models.demod_sb import DecisionDemodSB, pack_state
+    from libtsd_tpu_torch.ops.kernels import demod_sb as KSB
+    r = qp["cuda-fused"]
+    dd, k = r["dd"], STEPS_QAM // 2
+    st = r["states"][k]
+    xb = x[:, k * N_QAM:(k + 1) * N_QAM]
+    names = ("bits", "bit flags", "y", "valid", "state rows", "xtail")
+    for C in C_QAM_SERVE:
+        xc = xb[:C].contiguous()
+        args = (xc, st["xtail"][:C].contiguous(),
+                pack_state(st)[:, :C].contiguous(),
+                KSB.FusedStep(C, dd.loop_params(N_QAM), dd.wf.symbols,
+                              dd.h_mf, dd.rms_ref, dd.wf.info.k, xc.device))
+        got = KSB.demod_sb_fused_step(*args)
+        want = KSB.demod_sb_fused_step_plain(*args)
+        torch.cuda.synchronize()
+        same = [u.dtype == v.dtype and torch.equal(u, v)
+                for u, v in zip(got, want)]
+        print(f"check qam demod_sb_fused_step (#6 with its epilogue) vs "
+              f"plain, {C} x {N_QAM} step {k}: "
+              + ", ".join(f"{nm} equal {ok}" for nm, ok in zip(names, same))
+              + f" {'ok' if all(same) else 'FAIL'}")
+        if not all(same):
+            raise AssertionError("demod_sb_fused_step vs plain")
+        del args, got, want
+    ok = (DecisionDemodSB.row_steps == STEPS_QAM
+          and DecisionDemodSB.stacked_steps == 0)
+    print(f"check qam cuda-fused route: {DecisionDemodSB.row_steps} of "
+          f"{STEPS_QAM} steps in row layout (one launch), "
+          f"{DecisionDemodSB.stacked_steps} stacked {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("qam cuda-fused: a step off the one-launch route")
 
 
 def qam_timings(x, qp) -> dict:
@@ -3513,10 +3556,13 @@ def main() -> int:
     t_phase = time.perf_counter()
     wf, bits, xq = qam_signal(gen, dev)
     kernels.reset_launches()
+    from libtsd_tpu_torch.models.demod_sb import DecisionDemodSB
+    DecisionDemodSB.row_steps = DecisionDemodSB.stacked_steps = 0
     qp = qam_path(wf, xq, dev)
     launches.update({k: v for k, v in kernels.launches().items()
                      if k in PATH_KERNELS["qam"]})
     errs.update(qam_checks(wf, bits, xq, qp))
+    qam_step_checks(xq, qp)
     tq = qam_timings(xq, qp)
     tq.update(welch_t)
     if args.profile:

@@ -216,18 +216,61 @@ struct TapsTable {
   }
 };
 
+// A symbol's outputs: y, the decision's index and the valid flag (#5, and
+// #6 where the caller passes no step epilogue).  Invalid symbols are zeros.
+struct SymOut {
+  float2* y;
+  int* s;
+  unsigned char* v;
+  __device__ __forceinline__ void operator()(int idx, bool upd, float y_r,
+                                             float y_i, int bi) const {
+    y[idx] = upd ? make_float2(y_r, y_i) : make_float2(0.f, 0.f);
+    s[idx] = upd ? bi : 0;
+    v[idx] = upd ? 1 : 0;
+  }
+};
+
+// #6's step epilogue: y and the valid flag, then the decision's k bits,
+// least significant first (waveform.symbol_indices_to_bits), and the flag
+// repeated k times, as bytes.  At k = 4 a lane stores each as one 4-byte
+// word, so a group's S lanes write S * 4 contiguous bytes.
+struct BitsOut {
+  float2* y;
+  unsigned char* v;
+  unsigned char* b;
+  unsigned char* bv;
+  int k;
+  __device__ __forceinline__ void operator()(int idx, bool upd, float y_r,
+                                             float y_i, int bi) const {
+    y[idx] = upd ? make_float2(y_r, y_i) : make_float2(0.f, 0.f);
+    v[idx] = upd ? 1 : 0;
+    const unsigned s = upd ? (unsigned)bi : 0u;
+    if (k == 4) {
+      reinterpret_cast<unsigned*>(b)[idx] = (s & 1u) | ((s >> 1) & 1u) << 8 |
+                                            ((s >> 2) & 1u) << 16 |
+                                            ((s >> 3) & 1u) << 24;
+      reinterpret_cast<unsigned*>(bv)[idx] = upd ? 0x01010101u : 0u;
+    } else {
+      for (int i = 0; i < k; ++i) {
+        b[idx * k + i] = (unsigned char)((s >> i) & 1u);
+        bv[idx * k + i] = upd ? 1 : 0;
+      }
+    }
+  }
+};
+
 // One sub-block of one channel, lane j of its group.  win(u) returns the
 // window sample at frame offset u, where the frame of sub-block t starts
 // ML + (K - 1) + osf/2 samples before the nominal pointer t*S*osf; taps(tau,
 // tp) gives the interpolator's taps; the interpolated sums are multiplied
-// by `scale` (the fused AGC pre-scale).
-template <int KMAX, class Win, class Taps>
+// by `scale` (the fused AGC pre-scale); out(idx, upd, y_r, y_i, index)
+// stores symbol idx of the channel's row.
+template <int KMAX, class Win, class Taps, class Out>
 __device__ __forceinline__ void sb_step(const SbCfg& c, SbState& st, int t,
                                         int j, const Win& win, const Taps& taps,
                                         float scale,
                                         const float2* __restrict__ s_sym,
-                                        float2* yo, int* so,
-                                        unsigned char* vo, bool active) {
+                                        const Out& out, bool active) {
   const int S = c.S, osf = c.osf, G = c.G;
   const int h = osf >> 1, ML = S * osf, MH = 2 * osf;
   const float nom = (float)(t * S * osf);
@@ -365,12 +408,7 @@ __device__ __forceinline__ void sb_step(const SbCfg& c, SbState& st, int t,
   }
   if (ready) st.ptr = ptr_adv;
 
-  if (active && lane_ok) {
-    const int idx = t * S + j;
-    yo[idx] = upd ? make_float2(y_r, y_i) : make_float2(0.f, 0.f);
-    so[idx] = upd ? bi : 0;
-    vo[idx] = upd ? 1 : 0;
-  }
+  if (active && lane_ok) out(t * S + j, upd, y_r, y_i, bi);
 }
 
 // Constellation points a kernel holds in shared memory: M rounded up to a
@@ -479,9 +517,8 @@ demod_sb_kernel(const float2* __restrict__ zp, long long ldz,
   SbState st = sb_load(st_in, cc, C);
   const float2* row = zp + (long long)cc * ldz + fs0;
   const long long ldo = (long long)nsb * c.S;
-  float2* yo = y + (long long)cc * ldo;
-  int* so = sidx + (long long)cc * ldo;
-  unsigned char* vo = valid + (long long)cc * ldo;
+  const SymOut out{y + (long long)cc * ldo, sidx + (long long)cc * ldo,
+                   valid + (long long)cc * ldo};
   float2* ring = rings + grp * l.RS;
   const int mask = l.RS - 1;
   const int hop = c.S * c.osf;
@@ -512,7 +549,7 @@ demod_sb_kernel(const float2* __restrict__ zp, long long ldz,
     const int base = t * hop + par;
     sb_step<KMAX>(c, st, t, j,
                   [ring, base, mask](int u) { return ring[(base + u) & mask]; },
-                  taps, 1.f, s_sym, yo, so, vo, active);
+                  taps, 1.f, s_sym, out, active);
   }
   if (active && j == 0) sb_store(st_out, cc, C, st);
 }
@@ -576,7 +613,13 @@ __device__ __forceinline__ void named_bar(int id, int count) {
 // every row is computed once.  When hop T tb starts, superframe T-1's
 // power is complete: the power EMA steps and superframe T's AGC pre-scale
 // goes into the scale ring.
-template <int KMAX>
+//
+// EP (the step epilogue, DecisionDemodSB.step's one launch): in place of
+// sidx the kernel writes the decisions' bits and the bits' valid flags
+// (BitsOut), the state rows with the pointer re-based to the next block
+// (ptr - n), and the input's last xoff samples, the next step's xtail, into
+// xt_out.  Every other result is the same, bit for bit.
+template <int KMAX, bool EP>
 __global__ void __launch_bounds__(2 * SBF_THREADS)
 demod_sb_fused_kernel(const float2* __restrict__ x,
                       const float2* __restrict__ xtail, int xoff,
@@ -586,7 +629,10 @@ demod_sb_fused_kernel(const float2* __restrict__ x,
                       const float2* __restrict__ sym, SbCfg c, int C, int nsb,
                       int tb, FusedLayout f, bool vec, float rms_ref,
                       float2* __restrict__ y, int* __restrict__ sidx,
-                      unsigned char* __restrict__ valid) {
+                      unsigned char* __restrict__ valid,
+                      unsigned char* __restrict__ bits,
+                      unsigned char* __restrict__ bvalid, int k,
+                      float2* __restrict__ xt_out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int G = c.G, S = c.S, osf = c.osf, n = c.n;
   const int ngrp = SBF_THREADS / G;
@@ -618,9 +664,13 @@ demod_sb_fused_kernel(const float2* __restrict__ x,
     const int bar_id = 1 + (G > 1 ? threadIdx.x / 64 : threadIdx.x / 32);
     SbState st = sb_load(st_in, cc, C);
     const long long ldo = (long long)nsb * S;
-    float2* yo = y + (long long)cc * ldo;
-    int* so = sidx + (long long)cc * ldo;
-    unsigned char* vo = valid + (long long)cc * ldo;
+    const auto out = [&] {
+      if constexpr (EP)
+        return BitsOut{y + cc * ldo, valid + cc * ldo, bits + cc * ldo * k,
+                       bvalid + cc * ldo * k, k};
+      else
+        return SymOut{y + cc * ldo, sidx + cc * ldo, valid + cc * ldo};
+    }();
     const int mask = f.RG - 1;
     float s = 1.f;
     const TapsClosed<KMAX> taps{c.itrp, c.nph, c.K, c.inv_nph};
@@ -630,9 +680,10 @@ demod_sb_fused_kernel(const float2* __restrict__ x,
       const int base = t * hop;
       sb_step<KMAX>(c, st, t, j,
                     [ring, base, mask](int u) { return ring[(base + u) & mask]; },
-                    taps, s, s_sym, yo, so, vo, active);
+                    taps, s, s_sym, out, active);
       named_bar(bar_id, bar_count);
     }
+    if (EP) st.ptr = fsub(st.ptr, (float)n);
     if (active && j == 0) sb_store(st_out, cc, C, st);
     return;
   }
@@ -743,6 +794,17 @@ demod_sb_fused_kernel(const float2* __restrict__ x,
     named_bar(bar_id, bar_count);
   }
   if (active && jp == 0) st_out[8 * C + cc] = p_ema;
+  if (EP && active) {   // x[n - xoff:], the next step's carried input
+    const float2* src = xr + (n - xoff);
+    float2* dst = xt_out + (long long)cc * xoff;
+    if (vec) {
+      for (int i = 2 * jp; i < xoff; i += 2 * GP)
+        *reinterpret_cast<float4*>(dst + i) =
+            *reinterpret_cast<const float4*>(src + i);
+    } else {
+      for (int i = jp; i < xoff; i += GP) dst[i] = src[i];
+    }
+  }
 }
 
 static SbCfg make_cfg(int S, int osf, int K, int nph, int itrp, int M, int n,
@@ -789,13 +851,17 @@ extern "C" int demod_sb_f32(const float2* zp, long long ldz,
   return (int)cudaGetLastError();
 }
 
+// bits == nullptr: #6's own contract (y, sidx, valid, the state rows);
+// else the step epilogue (EP above): y, valid, bits, bvalid (k bytes a
+// symbol), the rows with the pointer re-based, and xt_out; sidx unused.
 extern "C" int demod_sb_fused_f32(
     const float2* x, const float2* xtail, int xoff, const float* h_mf, int kmf,
     const float* st_in, float* st_out, const float2* sym, int M, float2* y,
     int* sidx, unsigned char* valid, int C, int nsb, int tb, int sfz, int S,
     int osf, int K, int nph, int itrp, int n, float rms_ref, float tgain,
     float aga, float gamma, float rho, int flags, int kmax, int smem_bytes,
-    cudaStream_t stream) {
+    cudaStream_t stream, unsigned char* bits, unsigned char* bvalid, int k,
+    float2* xt_out) {
   const SbCfg c = make_cfg(S, osf, K, nph, itrp, M, n, tgain, aga, gamma,
                            rho, flags);
   const FusedLayout f = fused_layout(S, osf, c.G, tb, sfz, kmf, M);
@@ -808,21 +874,28 @@ extern "C" int demod_sb_fused_f32(
   const unsigned blocks = (unsigned)((C + cpb - 1) / cpb);
   // consumer threads, then GP = G / 2 producer lanes a channel (1 at G = 1)
   const int threads = SBF_THREADS + cpb * (c.G > 1 ? c.G / 2 : 1);
-#define SB_FUSED_LAUNCH(KM)                                                  \
+#define SB_FUSED_LAUNCH(KM, EP)                                              \
   do {                                                                       \
-    cudaFuncSetAttribute(demod_sb_fused_kernel<KM>,                          \
+    cudaFuncSetAttribute(demod_sb_fused_kernel<KM, EP>,                      \
                          cudaFuncAttributeMaxDynamicSharedMemorySize,        \
                          smem_bytes);                                        \
-    demod_sb_fused_kernel<KM><<<blocks, threads, smem_bytes, stream>>>(       \
+    demod_sb_fused_kernel<KM, EP><<<blocks, threads, smem_bytes, stream>>>(   \
         x, xtail, xoff, h_mf, kmf, st_in, st_out, sym, c, C, nsb, tb, f,     \
-        vec, rms_ref, y, sidx, valid);                                       \
+        vec, rms_ref, y, sidx, valid, bits, bvalid, k, xt_out);              \
   } while (0)
-  if (kmax == 4)
-    SB_FUSED_LAUNCH(4);
+  const bool ep = bits != nullptr;
+  if (kmax == 4 && ep)
+    SB_FUSED_LAUNCH(4, true);
+  else if (kmax == 4)
+    SB_FUSED_LAUNCH(4, false);
+  else if (kmax == 16 && ep)
+    SB_FUSED_LAUNCH(16, true);
   else if (kmax == 16)
-    SB_FUSED_LAUNCH(16);
+    SB_FUSED_LAUNCH(16, false);
+  else if (ep)
+    SB_FUSED_LAUNCH(32, true);
   else
-    SB_FUSED_LAUNCH(32);
+    SB_FUSED_LAUNCH(32, false);
 #undef SB_FUSED_LAUNCH
   return (int)cudaGetLastError();
 }

@@ -24,7 +24,14 @@ Two paths with the same loop math:
   - ``"auto"`` / ``"cuda"``: matched filter (``Fir``, tier
     ``mf_precision``) -> block AGC -> kernel #5 (``ops.kernels.demod_sb``);
   - ``"cuda-fused"``: kernel #6, the matched filter (fp32) and a streaming
-    power-EMA AGC inside the kernel, from the raw input.
+    power-EMA AGC inside the kernel, from the raw input, with the step's
+    epilogue: the kernel also writes the bits, their valid flags, the
+    carried state and input tail.  The state is kept in #6's (9, C) row
+    layout (its loop entries are views of one rows tensor), so that a step
+    on a card is one launch and nothing else; a state in any other form
+    (restored from a checkpoint, converted from JAX) is stacked into rows
+    first.  ``DecisionDemodSB.row_steps`` and ``.stacked_steps`` count
+    the two.
 
   A CPU tensor runs each kernel's plain version; a CUDA tensor runs the
   kernel or raises.  Any channel count C works.
@@ -91,6 +98,11 @@ class DecisionDemodSB(Block):
     [0, ML + MH] flags the sub-block invalid and re-anchors to the next
     nominal centre."""
 
+    # fused steps whose state was in #6's row layout (on a card: one
+    # launch), and those whose state was stacked into rows first
+    row_steps = 0
+    stacked_steps = 0
+
     def __init__(self, itrp, mf, wf, cfg: SBDemodConfig):
         super().__init__()
         if cfg.engine not in ENGINES:
@@ -106,6 +118,8 @@ class DecisionDemodSB(Block):
             device=wf.device))
         # the constellation's rms, the AGC's target (host float, read once)
         self.rms_ref = float(torch.sqrt((wf.symbols.abs() ** 2).mean()))
+        # the fused engine's step plan, (C, n, device) and KSB.FusedStep
+        self._fused_plan = None
 
     @classmethod
     def create(cls, wf, cfg: SBDemodConfig,
@@ -191,16 +205,15 @@ class DecisionDemodSB(Block):
     def init_for_fused(self, x: torch.Tensor):
         """State of the fused engine: the carried INPUT tail (the matched
         filter over it reproduces the same z) and the power EMA of the AGC
-        pre-scale."""
+        pre-scale, the loop entries in #6's row layout."""
         b = tuple(x.shape[:-1])
         lay = KSB.fused_layout(self.cfg.osf, self.cfg.S, self.itrp.K,
                                max(x.shape[-1], 1))
-        return dict(self._loop_state(b),
-                    p_ema=torch.zeros(b, dtype=real_dtype,
-                                      device=self.device),
-                    xtail=torch.zeros(b + (lay["XOFF"],),
-                                      dtype=complex_dtype,
-                                      device=self.device))
+        rows = torch.zeros((9,) + b, dtype=real_dtype, device=self.device)
+        rows[0] = self.cfg.osf / 2.0
+        rows[2] = 1.0
+        return _fused_state(rows, torch.zeros(
+            b + (lay["XOFF"],), dtype=complex_dtype, device=self.device))
 
     # --- step -----------------------------------------------------------
     def step(self, state, x: torch.Tensor):
@@ -258,21 +271,36 @@ class DecisionDemodSB(Block):
         bits, bvalid = self._outputs(sidx, valid)
         return new_state, (bits, y, valid, bvalid)
 
+    def _fused_step(self, x: torch.Tensor) -> KSB.FusedStep:
+        """#6's step plan for x's shape and device: the last step's, or a
+        new one (only the last is kept, with its prepared results)."""
+        key = (x.shape[0], x.shape[-1], x.device)
+        if self._fused_plan is None or self._fused_plan[0] != key:
+            self._fused_plan = (key, KSB.FusedStep(
+                x.shape[0], self.loop_params(x.shape[-1]), self.wf.symbols,
+                self.h_mf, self.rms_ref, self.wf.info.k, x.device))
+        return self._fused_plan[1]
+
     def _step_batched_fused(self, state, x: torch.Tensor):
-        """Batched path through kernel #6: matched filter, AGC pre-scale
-        and demodulation in one kernel."""
-        n = x.shape[-1]
+        """Batched path through kernel #6: matched filter, AGC pre-scale,
+        demodulation, bits and carried state in one kernel."""
         x = x.to(complex_dtype)
-        st9 = pack_state(state)
-        y, sidx, valid, st9 = KSB.demod_sb_fused(
-            x, state["xtail"], st9, self.wf.symbols, self.h_mf,
-            self.loop_params(n), self.rms_ref)
+        with span("tsd.demod_sb.pack_state"):
+            rows = _viewed_rows(state)
+            stacked = rows is None
+            if stacked:
+                rows = _stack_rows(state)
+        bits, y, valid, bvalid, rows, xtail = KSB.demod_sb_fused_step(
+            x, state["xtail"], rows, self._fused_step(x))
+        if stacked:
+            DecisionDemodSB.stacked_steps += 1
+        else:
+            DecisionDemodSB.row_steps += 1
         with span("tsd.demod_sb.carry"):
-            xoff = state["xtail"].shape[-1]
-            new_state = dict(_unpack(st9, n), p_ema=st9[8],
-                             xtail=x[:, n - xoff:].clone())
-        bits, bvalid = self._outputs(sidx, valid)
-        return new_state, (bits, y, valid, bvalid)
+            new_state = _fused_state(rows, xtail)
+        with span("tsd.demod_sb.outputs"):
+            out = (bits, y, valid, bvalid)
+        return new_state, out
 
     def _step_1d(self, state, x: torch.Tensor):
         """The 1-D reference path: a per-step window read from zp, the LUT
@@ -371,16 +399,56 @@ class DecisionDemodSB(Block):
         return new_state, (bits, syms, valid, bvalid)
 
 
-@spanned("tsd.demod_sb.pack_state")
-def pack_state(state) -> torch.Tensor:
-    """A batched state's loop part as the kernels' rows: (8, C), or
-    (9, C) with the power EMA for the fused layout."""
+def _stack_rows(state) -> torch.Tensor:
     lf0, lf1, lf2 = state["lf"]
     rows = [state["ptr"], state["theta"], state["gain"], lf0, lf1, lf2,
             state["yprev_ri"][..., 0], state["yprev_ri"][..., 1]]
     if "p_ema" in state:
         rows.append(state["p_ema"])
     return torch.stack(rows).to(real_dtype)
+
+
+@spanned("tsd.demod_sb.pack_state")
+def pack_state(state) -> torch.Tensor:
+    """A batched state's loop part as the kernels' rows: (8, C), or
+    (9, C) with the power EMA for the fused layout (a new tensor)."""
+    return _stack_rows(state)
+
+
+def _fused_state(rows: torch.Tensor, xtail: torch.Tensor) -> dict:
+    """The fused engine's state dict over (9, ...) rows in #6's order: the
+    loop entries are views of rows (yprev_ri's re/im the last axis)."""
+    ptr, theta, gain, lf0, lf1, lf2, _, _, p_ema = rows.unbind(0)
+    return dict(lf=(lf0, lf1, lf2), theta=theta, gain=gain, ptr=ptr,
+                yprev_ri=rows[6:8].movedim(0, -1), p_ema=p_ema, xtail=xtail)
+
+
+def _viewed_rows(state) -> torch.Tensor | None:
+    """The (9, C) rows that a (C,)-batched fused state's loop entries view
+    as :func:`_fused_state` lays them out, or None for a state in any
+    other form."""
+    ptr = state["ptr"]
+    base = ptr._base
+    if (base is None or base.dtype is not real_dtype or ptr.dim() != 1
+            or not base.is_contiguous()):
+        return None
+    C = ptr.shape[0]
+    if base.numel() != 9 * C:
+        return None
+    at, step = base.data_ptr(), C * base.element_size()
+    lf0, lf1, lf2 = state["lf"]
+    for r, t in ((0, ptr), (1, state["theta"]), (2, state["gain"]),
+                 (3, lf0), (4, lf1), (5, lf2), (8, state["p_ema"])):
+        if (t._base is not base or t.dtype is not real_dtype
+                or t.data_ptr() != at + r * step or t.stride() != (1,)
+                or t.shape != ptr.shape):
+            return None
+    yp = state["yprev_ri"]
+    if (yp._base is not base or yp.dtype is not real_dtype
+            or yp.data_ptr() != at + 6 * step or yp.stride() != (1, C)
+            or yp.shape != (C, 2)):
+        return None
+    return base if base.dim() == 2 else base.view(9, C)
 
 
 def _unpack(st: torch.Tensor, n: int) -> dict:

@@ -6,6 +6,12 @@
 * :func:`demod_sb_fused` (#6) replaces ``demod_sb_pallas_fused``: the same
   loop with the matched filter (fp32) and a streaming power-EMA AGC
   pre-scale inside the kernel, from the raw input.
+* :func:`demod_sb_fused_step` is #6 with its step epilogue, the whole of a
+  ``DecisionDemodSB`` step on the fused engine in one launch: the kernel
+  writes the bits and their valid flags in place of the decisions'
+  indices, the state rows with the pointer re-based to the next block and
+  the carried input tail.  A :class:`FusedStep` holds what does not change
+  from step to step.
 
 What bounds them on the H100 and what their design does about it is set
 out at the top of ``csrc/demod_sb.cu``: the loop is a chain of nsb
@@ -38,7 +44,8 @@ from . import _build
 
 __all__ = ["LoopParams", "ITRP", "APW", "pick_tb", "fused_layout",
            "interp_taps", "demod_sb", "demod_sb_plain", "demod_sb_fused",
-           "demod_sb_fused_plain", "fused_smem"]
+           "demod_sb_fused_plain", "fused_smem", "FusedStep",
+           "demod_sb_fused_step", "demod_sb_fused_step_plain"]
 
 ITRP = {"cspline": 0, "linear": 1, "lagrange": 2, "sinc": 3}
 APW = 0.25      # power-EMA update per superframe (the JAX package's _APW)
@@ -377,10 +384,27 @@ def demod_sb_fused_plain(x: torch.Tensor, xtail: torch.Tensor,
     return y, sidx, valid, torch.cat([st8, p_ema[None]])
 
 
-def _check_fused(x, xtail, p: LoopParams) -> dict:
-    """The fused engine's block rules, with the JAX package's messages."""
+def demod_sb_fused_step_plain(x: torch.Tensor, xtail: torch.Tensor,
+                              rows: torch.Tensor, plan: "FusedStep"):
+    """Plain PyTorch version of :func:`demod_sb_fused_step`: #6's plain
+    version, then its results in the step's form (the decisions' bits as
+    ``waveform.symbol_indices_to_bits`` unpacks them, the valid flags
+    repeated a bit, the pointer re-based, the input tail copied)."""
+    p, k = plan.p, plan.k
+    y, sidx, valid, st9 = demod_sb_fused_plain(
+        x, xtail, rows, plan.sym, plan.h_mf, p, plan.rms_ref)
+    j = torch.arange(k, dtype=sidx.dtype, device=sidx.device)
+    bits = ((sidx[..., None] >> j) & 1).reshape(sidx.shape[0], -1)
+    return (bits.to(torch.int8), y, valid,
+            valid.repeat_interleave(k, dim=-1),
+            torch.cat([st9[:1] - p.n, st9[1:]]),
+            x[:, p.n - plan.lay["XOFF"]:].clone())
+
+
+def _fused_rules(n: int, p: LoopParams) -> dict:
+    """The fused engine's rules for an n-sample block, with the JAX
+    package's messages; its layout."""
     osf, S = p.osf, p.S
-    n = x.shape[-1]
     if n != p.n:
         raise ValueError(f"block of {n} samples, parameters for {p.n}")
     if n % (osf * S):
@@ -394,9 +418,19 @@ def _check_fused(x, xtail, p: LoopParams) -> dict:
         raise ValueError(
             f"engine='cuda-fused' needs blocks of at least {lay['XOFF']} "
             f"samples (the carried superframe margin); got n={n}")
+    return lay
+
+
+def _check_xtail(xtail, lay: dict) -> None:
     if xtail.shape[-1] != lay["XOFF"]:
         raise ValueError(f"xtail holds {xtail.shape[-1]} samples, the "
                          f"layout carries {lay['XOFF']}")
+
+
+def _check_fused(x, xtail, p: LoopParams) -> dict:
+    """The fused engine's block rules, with the JAX package's messages."""
+    lay = _fused_rules(x.shape[-1], p)
+    _check_xtail(xtail, lay)
     return lay
 
 
@@ -499,9 +533,7 @@ def demod_sb_fused(x: torch.Tensor, xtail: torch.Tensor,
     lay = _check_fused(x, xtail, p)
     _check_kernel(p, sym)
     kmf = h_mf.shape[0]
-    if not 0 < kmf <= 129:
-        raise ValueError(f"the fused engine takes 1..129 matched-filter "
-                         f"taps, got {kmf}")
+    _check_kmf(kmf)
     C, n = x.shape
     x = x.to(complex_dtype).contiguous()
     xtail = xtail.to(complex_dtype).contiguous()
@@ -511,10 +543,7 @@ def demod_sb_fused(x: torch.Tensor, xtail: torch.Tensor,
     y, sidx, valid = _outputs(C, p, x.device)
     st = torch.empty_like(state9)
     _build.require_cuda(x, xtail, state9, sym, h_mf, y, sidx, valid, st)
-    smem = fused_smem(p, lay, kmf, sym.shape[0])["smem"]
-    if smem > _build.SMEM_MAX:
-        raise ValueError(f"the fused kernel's rings need {smem} bytes of "
-                         f"shared memory")
+    smem = _fused_smem_bytes(p, lay, kmf, sym.shape[0])
     if C:
         err = _build.lib().demod_sb_fused_f32(
             _build.ptr(x), _build.ptr(xtail), lay["XOFF"], _build.ptr(h_mf),
@@ -522,10 +551,147 @@ def demod_sb_fused(x: torch.Tensor, xtail: torch.Tensor,
             sym.shape[0], _build.ptr(y), _build.ptr(sidx), _build.ptr(valid),
             C, p.nsb, lay["tb"], lay["SFZ"], p.S, p.osf, p.K, p.nph,
             ITRP[p.itrp], n, rms_ref, p.tgain, p.aga, p.gamma, p.rho,
-            p.flags, _kmax(p.K), smem, _build.stream_ptr(x.device))
+            p.flags, _kmax(p.K), smem, _build.stream_ptr(x.device),
+            None, None, 0, None)
         _build.check(err, "demod_sb_fused_f32")
         demod_sb_fused.launches += 1
     return y, sidx, valid, st
 
 
+# #6's launches, through this wrapper and through demod_sb_fused_step
 demod_sb_fused.launches = 0
+
+
+def _check_kmf(kmf: int) -> None:
+    if not 0 < kmf <= 129:
+        raise ValueError(f"the fused engine takes 1..129 matched-filter "
+                         f"taps, got {kmf}")
+
+
+def _fused_smem_bytes(p: LoopParams, lay: dict, kmf: int, M: int) -> int:
+    smem = fused_smem(p, lay, kmf, M)["smem"]
+    if smem > _build.SMEM_MAX:
+        raise ValueError(f"the fused kernel's rings need {smem} bytes of "
+                         f"shared memory")
+    return smem
+
+
+class FusedStep:
+    """What :func:`demod_sb_fused_step` needs for C channels of n-sample
+    blocks on one device, made once: the block rules and layout, the
+    constellation and matched-filter taps on the device and, on a card,
+    #6's checks, shared-memory plan and the launch's fixed arguments.
+    ``k``: bits a symbol.
+
+    On a card it also holds the next step's result tensors, allocated
+    right after a launch while #6 runs, so that a step allocates nothing
+    before its launch.  Each set is handed out once, to a step on the
+    stream it was made on (on another stream a step allocates anew)."""
+
+    def __init__(self, C: int, p: LoopParams, sym: torch.Tensor,
+                 h_mf: torch.Tensor, rms_ref: float, k: int, device):
+        self.C, self.p, self.k, self.rms_ref = C, p, k, rms_ref
+        self.lay = _fused_rules(p.n, p)
+        self.sym = sym.to(device=device, dtype=complex_dtype).contiguous()
+        self.h_mf = h_mf.to(device=device, dtype=real_dtype).contiguous()
+        if self.sym.device.type != "cuda":
+            return
+        _check_kernel(p, self.sym)
+        lay = self.lay
+        kmf = self.h_mf.shape[0]
+        _check_kmf(kmf)
+        smem = _fused_smem_bytes(p, lay, kmf, self.sym.shape[0])
+        self.device = self.sym.device
+        self.x_shape = torch.Size((C, p.n))
+        self.rows_shape = torch.Size((9, C))
+        self._ready = []
+        # pointers as ints: the entry point's argtypes make them 64-bit
+        self.launch = _build.lib().demod_sb_fused_f32
+        self.a_mf = (lay["XOFF"], self.h_mf.data_ptr(), kmf)
+        self.a_sym = (self.sym.data_ptr(), self.sym.shape[0])
+        self.a_loop = (C, p.nsb, lay["tb"], lay["SFZ"], p.S, p.osf, p.K,
+                       p.nph, ITRP[p.itrp], p.n, rms_ref, p.tgain, p.aga,
+                       p.gamma, p.rho, p.flags, _kmax(p.K), smem)
+
+    def stream(self) -> int:
+        """The current stream's handle on the plan's card."""
+        return torch._C._cuda_getCurrentRawStream(self.device.index)
+
+    def check(self, x, xtail, rows) -> None:
+        """A step's input shapes and devices (what can change from one
+        step to the next)."""
+        if x.shape != self.x_shape:
+            raise ValueError(f"block of {tuple(x.shape)} samples, "
+                             f"parameters for {tuple(self.x_shape)}")
+        _check_xtail(xtail, self.lay)
+        if rows.shape != self.rows_shape:
+            raise ValueError(f"state rows {tuple(rows.shape)}, the fused "
+                             f"layout takes {tuple(self.rows_shape)}")
+        idx = self.device.index
+        if (x.get_device() != idx or xtail.get_device() != idx
+                or rows.get_device() != idx):
+            _build.require_cuda(self.sym, x, xtail, rows)
+
+    def results(self, stream: int) -> tuple:
+        """A step's fresh result tensors (bits, y, valid, bit_valid, rows,
+        xtail): a set made after a launch on this stream, else a new one.
+        (``list.pop`` hands a set to one caller only, threads or not.)"""
+        try:
+            made_on, out = self._ready.pop()
+        except IndexError:
+            return self._new_results()
+        return out if made_on == stream else self._new_results()
+
+    def prepare(self, stream: int) -> None:
+        """Allocate the next step's results (after a launch)."""
+        self._ready.append((stream, self._new_results()))
+
+    def _new_results(self) -> tuple:
+        C, m, k, dev = self.C, self.p.nsb * self.p.S, self.k, self.device
+        return (torch.empty((C, m * k), dtype=torch.int8, device=dev),
+                torch.empty((C, m), dtype=complex_dtype, device=dev),
+                torch.empty((C, m), dtype=torch.bool, device=dev),
+                torch.empty((C, m * k), dtype=torch.bool, device=dev),
+                torch.empty(self.rows_shape, dtype=real_dtype, device=dev),
+                torch.empty((C, self.lay["XOFF"]), dtype=complex_dtype,
+                            device=dev))
+
+
+def _dense(t: torch.Tensor, dtype) -> torch.Tensor:
+    """t itself where it is contiguous and of dtype (a step's usual case),
+    else a contiguous copy in dtype."""
+    if t.dtype == dtype and t.is_contiguous():
+        return t
+    return t.to(dtype).contiguous()
+
+
+@spanned("tsd.kernels.demod_sb_fused")
+def demod_sb_fused_step(x: torch.Tensor, xtail: torch.Tensor,
+                        rows: torch.Tensor, plan: FusedStep):
+    """#6 with the step epilogue: x (C, n) complex64 raw input, xtail
+    (C, XOFF) the input carried from the last block, rows (9, C) float32
+    the state's rows.  Returns fresh tensors: bits (C, m k) int8 (each
+    decision's k bits, least significant first), y (C, m) complex64, valid
+    (C, m) bool, bit_valid (C, m k) bool, the rows after the block with
+    the pointer re-based to the next one (ptr - n), and x's last XOFF
+    samples.  Same results as :func:`demod_sb_fused_step_plain`; on a card
+    one launch and nothing else (inputs of another dtype or not contiguous
+    are copied first)."""
+    if _build.use_plain(x):
+        return demod_sb_fused_step_plain(x, xtail, rows, plan)
+    x, xtail = _dense(x, complex_dtype), _dense(xtail, complex_dtype)
+    rows = _dense(rows, real_dtype)
+    plan.check(x, xtail, rows)
+    stream = plan.stream()
+    out = plan.results(stream)
+    if plan.C:
+        bits, y, valid, bvalid, st, xt = out
+        err = plan.launch(
+            x.data_ptr(), xtail.data_ptr(), *plan.a_mf, rows.data_ptr(),
+            st.data_ptr(), *plan.a_sym, y.data_ptr(), None, valid.data_ptr(),
+            *plan.a_loop, stream, bits.data_ptr(), bvalid.data_ptr(),
+            plan.k, xt.data_ptr())
+        _build.check(err, "demod_sb_fused_f32")
+        demod_sb_fused.launches += 1
+        plan.prepare(stream)
+    return out

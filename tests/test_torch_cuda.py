@@ -493,6 +493,143 @@ def test_demod_kernels_without_build_raise(dev, tmp_path, monkeypatch):
                            ddf.h_mf, p, ddf.rms_ref)
 
 
+# --------------------------------- #6's step epilogue: DecisionDemodSB.step
+# The fused engine's step is one launch of #6 that writes the bits, their
+# valid flags, the state rows (pointer re-based) and the carried input
+# tail.  It is held bit for bit to the route the step composed around #6's
+# own contract: symbol_indices_to_bits and repeat_interleave on its
+# indices and flags, _unpack and a copy of the input's tail.  A state
+# restored from a checkpoint or converted as from JAX is stacked into rows
+# at its first step.
+
+def _composed_fused_step(dd, st, xb):
+    from libtsd_tpu_torch.models.demod_sb import _unpack, pack_state
+    from libtsd_tpu_torch.models.waveform import symbol_indices_to_bits
+    from libtsd_tpu_torch.ops.kernels import demod_sb as KSB
+    n, k = xb.shape[-1], dd.wf.info.k
+    y, sidx, valid, st9 = KSB.demod_sb_fused(
+        xb, st["xtail"], pack_state(st), dd.wf.symbols, dd.h_mf,
+        dd.loop_params(n), dd.rms_ref)
+    xoff = st["xtail"].shape[-1]
+    new = dict(_unpack(st9, n), p_ema=st9[8],
+               xtail=xb[:, n - xoff:].clone())
+    return new, (symbol_indices_to_bits(sidx, k), y, valid,
+                 valid.repeat_interleave(k, dim=-1))
+
+
+def _state_as(form, st, tmp_path):
+    """st itself, restored from a checkpoint, or converted by
+    demod_state_from_jax from numpy arrays (what a JAX state gives)."""
+    if form == "checkpoint":
+        from libtsd_tpu_torch.utils.checkpoint import load_state, save_state
+        save_state(str(tmp_path / "demod.npz"), st)
+        return load_state(str(tmp_path / "demod.npz"), st)
+    if form == "converted":
+        from libtsd_tpu_torch.utils.convert import demod_state_from_jax
+        as_np = {k: (tuple(a.cpu().numpy() for a in v)
+                     if isinstance(v, tuple) else v.cpu().numpy())
+                 for k, v in st.items()}
+        return demod_state_from_jax(as_np, device=st["ptr"].device)
+    return st
+
+
+def _same_state(a, b):
+    assert list(a) == list(b)
+    for key in a:
+        u, v = ((torch.stack(a[key]), torch.stack(b[key])) if key == "lf"
+                else (a[key], b[key]))
+        assert u.shape == v.shape and u.dtype == v.dtype, key
+        assert torch.equal(u, v), key
+
+
+@pytest.mark.parametrize("form", ["own", "checkpoint", "converted"])
+@pytest.mark.parametrize("n", [8192, 1216])
+@pytest.mark.parametrize("C", [1, 3, 128, 4096])
+def test_fused_step_one_launch_bit_identical(dev, C, n, form, tmp_path):
+    """Four consecutive steps after a first one, the state carried (n 1216:
+    19 sub-blocks, superframes of 1): bits, bit flags, y, valid, the nine
+    state rows and the input tail equal the composed route's."""
+    from libtsd_tpu_torch.models.demod_sb import (DecisionDemodSB,
+                                                  SBDemodConfig, _viewed_rows)
+    from libtsd_tpu_torch.ops.kernels import demod_sb as KSB
+    wf, _, x = _qam(dev, 16, C, 5 * n // 4 + 64, C + n)
+    dd = DecisionDemodSB.create(wf, SBDemodConfig(osf=4, S=16,
+                                                  engine="cuda-fused"),
+                                device=dev)
+    st = dd.step(dd.init_for(x[:, :n]), x[:, :n].contiguous())[0]
+    st = ref = _state_as(form, st, tmp_path)
+    for i in range(1, 5):
+        xb = x[:, i * n:(i + 1) * n].contiguous()
+        rows0, stacked0 = DecisionDemodSB.row_steps, \
+            DecisionDemodSB.stacked_steps
+        launches = KSB.demod_sb_fused.launches
+        st, out = dd.step(st, xb)
+        assert KSB.demod_sb_fused.launches == launches + 1
+        fell_back = i == 1 and form != "own"
+        assert DecisionDemodSB.stacked_steps - stacked0 == int(fell_back)
+        assert DecisionDemodSB.row_steps - rows0 == int(not fell_back)
+        ref, want = _composed_fused_step(dd, ref, xb)
+        torch.cuda.synchronize()
+        for u, v in zip(out, want):
+            assert u.shape == v.shape and u.dtype == v.dtype
+            assert torch.equal(u, v)
+        assert out[2].float().mean() > 0.5
+        _same_state(st, ref)
+        assert _viewed_rows(st) is not None
+
+
+def test_fused_step_is_one_kernel(dev, tmp_path):
+    """A traced step from a state in row layout launches #6 and no other
+    kernel, copy or set; the route counter advances by one."""
+    import json
+    from torch.profiler import ProfilerActivity, profile
+    from libtsd_tpu_torch.models.demod_sb import (DecisionDemodSB,
+                                                  SBDemodConfig)
+    n = 8192
+    wf, _, x = _qam(dev, 16, 256, 2 * n // 4 + 64, 21)
+    dd = DecisionDemodSB.create(wf, SBDemodConfig(osf=4, S=16,
+                                                  engine="cuda-fused"),
+                                device=dev)
+    x0, x1 = x[:, :n].contiguous(), x[:, n:2 * n].contiguous()
+    st = dd.step(dd.init_for(x0), x0)[0]
+    torch.cuda.synchronize()
+    rows0, stacked0 = DecisionDemodSB.row_steps, DecisionDemodSB.stacked_steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        dd.step(st, x1)
+        torch.cuda.synchronize()
+    assert DecisionDemodSB.row_steps == rows0 + 1
+    assert DecisionDemodSB.stacked_steps == stacked0
+    prof.export_chrome_trace(str(tmp_path / "step.json"))
+    ev = json.loads((tmp_path / "step.json").read_text())["traceEvents"]
+    work = [e["name"] for e in ev
+            if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    assert len(work) == 1 and "demod_sb_fused_kernel" in work[0], work
+
+
+def test_fused_step_keeps_earlier_results(dev):
+    """A step writes fresh tensors: the state and outputs of step k are
+    unchanged by step k + 1, and share no memory with its results."""
+    from libtsd_tpu_torch.models.demod_sb import (DecisionDemodSB,
+                                                  SBDemodConfig)
+    n = 2048
+    wf, _, x = _qam(dev, 16, 40, 3 * n // 4 + 64, 22)
+    dd = DecisionDemodSB.create(wf, SBDemodConfig(osf=4, S=16,
+                                                  engine="cuda-fused"),
+                                device=dev)
+    st1, out1 = dd.step(dd.init_for(x[:, :n]), x[:, :n])
+    flat = lambda st, out: [*st["lf"], *(v for k, v in st.items()  # noqa
+                                         if k != "lf"), *out]
+    kept = [t.clone() for t in flat(st1, out1)]
+    st2, out2 = dd.step(st1, x[:, n:2 * n])
+    torch.cuda.synchronize()
+    for a, b in zip(flat(st1, out1), kept):
+        assert torch.equal(a, b)
+    old = {t.untyped_storage().data_ptr() for t in flat(st1, out1)}
+    assert not old & {t.untyped_storage().data_ptr()
+                      for t in flat(st2, out2)}
+
+
 # ------------------------------------------- #9 ola, #10 detfront
 # Gates: #9's output and new state to 1e-5 of the plain version's peak
 # (the JAX gate between its Pallas OLA kernel and XLA's FFT path,

@@ -45,9 +45,11 @@ from libtsd_tpu.ops.fft import delay_signal as delay_j
 from libtsd_tpu_torch.models import ber as BERt
 from libtsd_tpu_torch.models import waveform as WFt
 from libtsd_tpu_torch.models.demod_sb import (DecisionDemodSB, SBDemodConfig,
+                                              _unpack, _viewed_rows,
                                               pack_state)
 from libtsd_tpu_torch.models.modulator import ModConfig, Modulator
 from libtsd_tpu_torch.ops.kernels import _build, demod_sb as KSB
+from libtsd_tpu_torch.utils.checkpoint import load_state, save_state
 from libtsd_tpu_torch.utils.convert import (demod_sb_from_jax,
                                             demod_state_from_jax)
 import torch_compare  # noqa: F401  (caps torch's threads)
@@ -235,6 +237,118 @@ def test_fused_matches_jax_interpret(fused_runs):
     assert torch.equal(conv["xtail"], st["xtail"])
     rel = (conv["p_ema"] - st["p_ema"]).abs() / st["p_ema"]
     assert rel.max() < 1e-2       # bf16 against fp32 matched filter
+
+
+# The fused engine keeps its state in #6's (9, C) row layout (the loop
+# entries are views of one rows tensor) and, on a card, runs a step as one
+# launch that writes the bits, state and input tail.  Its plain route here
+# is held to the route the step composed around #6's own contract.
+
+def _composed_fused_step(dd, st, xb):
+    n, k = xb.shape[-1], dd.wf.info.k
+    y, sidx, valid, st9 = KSB.demod_sb_fused(
+        xb, st["xtail"], pack_state(st), dd.wf.symbols, dd.h_mf,
+        dd.loop_params(n), dd.rms_ref)
+    xoff = st["xtail"].shape[-1]
+    new = dict(_unpack(st9, n), p_ema=st9[8],
+               xtail=xb[:, n - xoff:].clone())
+    return new, (WFt.symbol_indices_to_bits(sidx, k), y, valid,
+                 valid.repeat_interleave(k, dim=-1))
+
+
+def _same_state(a, b):
+    """Same keys in the same order, shapes, dtypes and values."""
+    assert list(a) == list(b)
+    for key in a:
+        u, v = ((torch.stack(a[key]), torch.stack(b[key])) if key == "lf"
+                else (a[key], b[key]))
+        assert u.shape == v.shape and u.dtype == v.dtype, key
+        assert torch.equal(u, v), key
+
+
+@pytest.mark.parametrize("form", ["own", "checkpoint", "jax"])
+def test_fused_step_rows_match_the_composed_route(fused_runs, tmp_path,
+                                                  form):
+    """From the port's own fused state, the same restored from a checkpoint
+    and JAX's converted by demod_state_from_jax: two steps give the
+    composed route's outputs and state dict bit for bit, the state in row
+    layout; the first step from a restored or converted state is counted
+    as stacked, every other one as in row layout."""
+    dt, _, (sj, _), (st, _) = fused_runs
+    assert _viewed_rows(st) is not None
+    if form == "checkpoint":
+        save_state(str(tmp_path / "demod.npz"), st)
+        st = load_state(str(tmp_path / "demod.npz"), st)
+    elif form == "jax":
+        st = demod_state_from_jax(sj, device="cpu")
+    g = torch.Generator().manual_seed(8)
+    x = 0.5 * torch.complex(*torch.randn(2, 128, 2 * 1152, generator=g))
+    ref = st
+    for i in range(2):
+        xb = x[:, i * 1152:(i + 1) * 1152]
+        rows0, stacked0 = DecisionDemodSB.row_steps, \
+            DecisionDemodSB.stacked_steps
+        st, out = dt.step(st, xb)
+        fell_back = i == 0 and form != "own"
+        assert DecisionDemodSB.stacked_steps - stacked0 == int(fell_back)
+        assert DecisionDemodSB.row_steps - rows0 == int(not fell_back)
+        ref, want = _composed_fused_step(dt, ref, xb)
+        for u, v in zip(out, want):
+            assert u.shape == v.shape and u.dtype == v.dtype
+            assert torch.equal(u, v)
+        _same_state(st, ref)
+        assert _viewed_rows(st) is not None
+
+
+@pytest.mark.parametrize("lead", [(3,), (2, 3)])
+def test_fused_state_layout_as_before(lead):
+    """init_for on the fused engine: the keys, shapes, dtypes and values
+    of the separate tensors it made before, its loop entries now views of
+    one (9, ...) rows tensor; a (..., C, n) input keeps the row layout
+    through the step's flattening."""
+    wf = WFt.wf_qam(16, WFt.PulseShape.rcs(0.25), device="cpu")
+    dd = DecisionDemodSB.create(wf, SBDemodConfig(osf=4, S=16,
+                                                  engine="cuda-fused"),
+                                device="cpu")
+    x = torch.zeros(lead + (512,), dtype=torch.complex64)
+    st = dd.init_for(x)
+    before = dict(dd._loop_state(lead),
+                  p_ema=torch.zeros(lead, dtype=torch.float32),
+                  xtail=torch.zeros(lead + (256,), dtype=torch.complex64))
+    _same_state(st, before)
+    rows = st["ptr"]._base
+    assert rows.shape == (9,) + lead
+    for v in (*st["lf"], st["theta"], st["gain"], st["yprev_ri"],
+              st["p_ema"]):
+        assert v._base is rows
+    g = torch.Generator().manual_seed(9)
+    x = torch.complex(*torch.randn((2,) + lead + (2 * 512,), generator=g))
+    rows0 = DecisionDemodSB.row_steps
+    for i in range(2):
+        st, out = dd.step(st, x[..., i * 512:(i + 1) * 512])
+        assert out[0].shape == lead + (4 * 128,)
+        assert st["yprev_ri"].shape == lead + (2,)
+    assert DecisionDemodSB.row_steps == rows0 + 2
+
+
+def test_fused_step_keeps_earlier_results():
+    """A step returns fresh tensors: the state and outputs of step k are
+    unchanged by step k + 1."""
+    wf = WFt.wf_qam(16, WFt.PulseShape.rcs(0.25), device="cpu")
+    dd = DecisionDemodSB.create(wf, SBDemodConfig(osf=4, S=16,
+                                                  engine="cuda-fused"),
+                                device="cpu")
+    g = torch.Generator().manual_seed(10)
+    x = torch.complex(*torch.randn(2, 4, 2 * 1024, generator=g))
+
+    def flat(st, out):
+        return [*st["lf"], *(v for k, v in st.items() if k != "lf"), *out]
+    st1, out1 = dd.step(dd.init_for(x[:, :1024]), x[:, :1024])
+    kept = [t.clone() for t in flat(st1, out1)]
+    st2, out2 = dd.step(st1, x[:, 1024:])
+    for a, b in zip(flat(st1, out1), kept):
+        assert torch.equal(a, b)
+    assert st2["ptr"]._base is not st1["ptr"]._base
 
 
 @pytest.mark.parametrize("engine", ["cuda", "cuda-fused"])

@@ -84,6 +84,12 @@ PATHS = {
 }
 
 
+# spans that launch nothing on the card: #6 writes the fused step's bits,
+# state and input tail, so the phases around it only build views and tuples
+HOST_ONLY = {"tsd.demod_sb.pack_state", "tsd.demod_sb.carry",
+             "tsd.demod_sb.outputs"}
+
+
 @pytest.fixture
 def kernel_route(monkeypatch):
     """The FFT's route on a card (#4's wrapper, its plain version here)."""
@@ -225,10 +231,11 @@ def dev():
 @pytest.mark.cuda
 @pytest.mark.parametrize("path", list(PATHS))
 def test_spans_cover_their_device_work_on_the_card(dev, path):
-    """On the card: each span once a step on the host and once a step on
-    the device (``gpu_user_annotation``), a wrapper's spans as many as its
-    launches, its kernels inside its device span, and the outputs of an
-    untraced run."""
+    """On the card: each span once a step on the host and, unless it
+    launches nothing (``HOST_ONLY``), once a step on the device
+    (``gpu_user_annotation``), a wrapper's spans as many as its launches,
+    its kernels inside its device span, and the outputs of an untraced
+    run."""
     from libtsd_tpu_torch.ops.kernels import chain, demod_sb, fft, welch
     # each wrapper's span, the wrapper and the kernels it launches
     wrappers = {
@@ -250,7 +257,8 @@ def test_spans_cover_their_device_work_on_the_card(dev, path):
     want = {n: STEPS for n in PATHS[path][1]}
     assert dict(Counter(n for n, _, _ in _spans(ev))) == want
     on_dev = _spans(ev, "gpu_user_annotation")
-    assert dict(Counter(n for n, _, _ in on_dev)) == want
+    assert dict(Counter(n for n, _, _ in on_dev)) == {
+        n: c for n, c in want.items() if n not in HOST_ONLY}
     for (kname, wrapper, names), b in zip(wrappers, before):
         assert wrapper.launches - b == STEPS
         for kernel in names:
