@@ -398,15 +398,20 @@ def ab_sb_iir(ob, other: str, inp: dict, only=GROUPS) -> dict:
         ob, other, "iir")
     casc, x = inp["casc"], inp["x"]
     ops = (casc.T, casc.S, casc.W, casc.M)
-    cases = {} if "sb" not in only else {
-        "demod_sb_fused 4096x8192": (
-            lambda: osb.demod_sb_fused(*inp["fused"]),
-            lambda: KSB.demod_sb_fused(*inp["fused"]),
-            lambda: KSB.demod_sb_fused_plain(*inp["fused"])),
-        "demod_sb 4096x8192": (
-            lambda: osb.demod_sb(*inp["sb"]),
-            lambda: KSB.demod_sb(*inp["sb"]),
-            lambda: KSB.demod_sb_plain(*inp["sb"]))}
+    cases = {}
+    if "sb" in only:
+        *step, plan = inp["fused"]     # each tree's #6 with its own plan
+        oplan = osb.FusedStep(plan.C, plan.p, plan.sym, plan.h_mf,
+                              plan.rms_ref, plan.k, plan.device)
+        cases = {
+            "demod_sb_fused 4096x8192": (
+                lambda: osb.demod_sb_fused_step(*step, oplan),
+                lambda: KSB.demod_sb_fused_step(*step, plan),
+                lambda: KSB.demod_sb_fused_step_plain(*step, plan)),
+            "demod_sb 4096x8192": (
+                lambda: osb.demod_sb(*inp["sb"]),
+                lambda: KSB.demod_sb(*inp["sb"]),
+                lambda: KSB.demod_sb_plain(*inp["sb"]))}
     if "iir" in only:
         cases["iir_cascade 64x2^18 2 sections"] = (
             lambda: oiir.iir_cascade(x, *ops),

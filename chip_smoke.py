@@ -16,8 +16,8 @@ Builds the port's CUDA kernels from ``libtsd_tpu_torch/csrc`` into
   the ``"cuda"`` engine (kernel #5) and the ``"cuda-fused"`` engine
   (kernel #6, one launch a step); tail EVM on every channel, bit errors
   after warm-up on sampled channels, each kernel against its plain
-  version, #6's step epilogue too at ``qam_serving``'s 4096 and 128
-  channels;
+  version, #6 on every output of its step too at ``qam_serving``'s 4096
+  and 128 channels;
 * the frame receiver: 64 channels of QPSK frames (RRC 0.25, osf 4, a
   64-bit header, distinct 256-bit payloads, one frame every 8,000 samples
   so that frames straddle block edges) made on the card by the port's
@@ -897,7 +897,8 @@ def qam_path(wf, x, dev) -> dict:
 
 
 def _kernel_args(eng, dd, st, xb):
-    """Kernel #5's or #6's inputs for one step, as the engine builds them."""
+    """Kernel #5's or #6's inputs for one step, as the engine builds them
+    (#6's with a step plan of its own)."""
     from libtsd_tpu_torch.models.demod_sb import pack_state
     from libtsd_tpu_torch.ops.kernels import demod_sb as KSB
     p = dd.loop_params(xb.shape[-1])
@@ -905,9 +906,21 @@ def _kernel_args(eng, dd, st, xb):
         _, zp = dd.matched_zp(st, xb)
         return (KSB.demod_sb, KSB.demod_sb_plain,
                 (zp, pack_state(st), dd.wf.symbols, p))
-    return (KSB.demod_sb_fused, KSB.demod_sb_fused_plain,
-            (xb.contiguous(), st["xtail"], pack_state(st), dd.wf.symbols,
-             dd.h_mf, p, dd.rms_ref))
+    xb = xb.contiguous()
+    return (KSB.demod_sb_fused_step, KSB.demod_sb_fused_step_plain,
+            (xb, st["xtail"], pack_state(st),
+             KSB.FusedStep(xb.shape[0], p, dd.wf.symbols, dd.h_mf,
+                           dd.rms_ref, dd.wf.info.k, xb.device)))
+
+
+def _checked(eng, out):
+    """(y, bits, valid, state rows) of #5's or #6's results."""
+    from libtsd_tpu_torch.models.waveform import symbol_indices_to_bits
+    if eng == "cuda":
+        y, sidx, valid, st = out
+        return y, symbol_indices_to_bits(sidx, 4), valid, st
+    bits, y, valid, _, rows, _ = out
+    return y, bits, valid, rows
 
 
 def qam_checks(wf, bits, x, qp) -> dict:
@@ -918,7 +931,6 @@ def qam_checks(wf, bits, x, qp) -> dict:
     (the first step and one from the middle).  Returns the largest
     |dsymbol| per kernel."""
     from libtsd_tpu_torch.models import ber
-    from libtsd_tpu_torch.models.waveform import symbol_indices_to_bits
     err = {}
     sym = wf.symbols
     for eng, r in qp.items():
@@ -958,13 +970,12 @@ def qam_checks(wf, bits, x, qp) -> dict:
         for k in (0, STEPS_QAM // 2):
             kf, pf, args = _kernel_args(eng, r["dd"], r["states"][k],
                                         x[:, k * N_QAM:(k + 1) * N_QAM])
-            yk, sk, vk, stk = kf(*args)
-            yp, sp, vp, stp = pf(*args)
+            yk, bk, vk, stk = _checked(eng, kf(*args))
+            yp, bp, vp, stp = _checked(eng, pf(*args))
             same = torch.equal(vk, vp)
             dy = (yk - yp).abs()
             dmax = dy[vp].max().item() if vp.any() else 0.0
-            mism = (symbol_indices_to_bits(sk, 4)
-                    != symbol_indices_to_bits(sp, 4)).float().mean().item()
+            mism = (bk != bp).float().mean().item()
             dst = (stk - stp).abs().max().item()
             # #5 and #6 round every operation as their plain versions do:
             # the symbols and the state agree bit for bit
@@ -985,13 +996,13 @@ def qam_checks(wf, bits, x, qp) -> dict:
 
 
 def qam_step_checks(x, qp) -> None:
-    """The fused engine's step route (#6 with its epilogue, one launch)
+    """The fused engine's step route (#6, one launch)
     against its plain version on the same inputs, bit for bit: bits, bit
     flags, y, valid, the nine state rows (pointer re-based) and the input
     tail, at qam_serving's channel counts C_QAM_SERVE, from the state the
     path carried into its middle step; and the path's steps all on that
-    route (DecisionDemodSB's route counters)."""
-    from libtsd_tpu_torch.models.demod_sb import DecisionDemodSB, pack_state
+    route (each from a state in #6's row layout)."""
+    from libtsd_tpu_torch.models.demod_sb import _viewed_rows, pack_state
     from libtsd_tpu_torch.ops.kernels import demod_sb as KSB
     r = qp["cuda-fused"]
     dd, k = r["dd"], STEPS_QAM // 2
@@ -1009,18 +1020,18 @@ def qam_step_checks(x, qp) -> None:
         torch.cuda.synchronize()
         same = [u.dtype == v.dtype and torch.equal(u, v)
                 for u, v in zip(got, want)]
-        print(f"check qam demod_sb_fused_step (#6 with its epilogue) vs "
+        print(f"check qam demod_sb_fused_step (#6) vs "
               f"plain, {C} x {N_QAM} step {k}: "
               + ", ".join(f"{nm} equal {ok}" for nm, ok in zip(names, same))
               + f" {'ok' if all(same) else 'FAIL'}")
         if not all(same):
             raise AssertionError("demod_sb_fused_step vs plain")
         del args, got, want
-    ok = (DecisionDemodSB.row_steps == STEPS_QAM
-          and DecisionDemodSB.stacked_steps == 0)
-    print(f"check qam cuda-fused route: {DecisionDemodSB.row_steps} of "
-          f"{STEPS_QAM} steps in row layout (one launch), "
-          f"{DecisionDemodSB.stacked_steps} stacked {'ok' if ok else 'FAIL'}")
+    rows = sum(_viewed_rows(s) is not None for s in r["states"])
+    ok = len(r["states"]) == STEPS_QAM and rows == STEPS_QAM
+    print(f"check qam cuda-fused route: {rows} of {STEPS_QAM} steps from a "
+          f"state in row layout (one launch), {len(r['states']) - rows} "
+          f"stacked {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("qam cuda-fused: a step off the one-launch route")
 
@@ -1032,7 +1043,8 @@ def qam_timings(x, qp) -> dict:
     for the decisions, ~60 for rotation, TED, phase and AGC errors and
     the lane sums; the fused kernel adds 4 Kmf + 3 per input sample for
     the matched filter and its power.  Bytes: the kernel's inputs once
-    and 13 per symbol out (y 8, sidx 4, valid 1)."""
+    and per symbol out #5's 13 (y 8, sidx 4, valid 1), #6's 17 (y 8,
+    valid 1, the 4 bits and their 4 flags) and its input tail."""
     out = {}
     xb = x[:, :N_QAM]
     for eng, r in qp.items():
@@ -1041,7 +1053,7 @@ def qam_timings(x, qp) -> dict:
         ms_step = time_ms(lambda: dd.step(st, xb))
         ms_k = time_ms(lambda: kf(*args))
         ms_p = time_ms(lambda: pf(*args))
-        p = args[-1] if eng == "cuda" else args[5]
+        p = args[-1] if eng == "cuda" else args[3].p
         nsym = C_QAM * p.nsb * p.S
         M, C = dd.wf.symbols.shape[0], C_QAM
         out_b = 13 * nsym + 2 * 36 * C + 8 * M
@@ -1052,7 +1064,8 @@ def qam_timings(x, qp) -> dict:
             name = "demod_sb"
         else:
             kmf = dd.h_mf.shape[0]
-            nb = 8 * (xb.numel() + args[1].numel()) + 4 * kmf + out_b
+            nb = (16 * args[1].numel() + 8 * xb.numel() + 4 * kmf + out_b
+                  + 4 * nsym)
             nf = loop_f + C * N_QAM * (4 * kmf + 3)
             name = "demod_sb_fused"
         bms, by = bound(nb, nf)
@@ -3556,8 +3569,6 @@ def main() -> int:
     t_phase = time.perf_counter()
     wf, bits, xq = qam_signal(gen, dev)
     kernels.reset_launches()
-    from libtsd_tpu_torch.models.demod_sb import DecisionDemodSB
-    DecisionDemodSB.row_steps = DecisionDemodSB.stacked_steps = 0
     qp = qam_path(wf, xq, dev)
     launches.update({k: v for k, v in kernels.launches().items()
                      if k in PATH_KERNELS["qam"]})

@@ -216,8 +216,8 @@ struct TapsTable {
   }
 };
 
-// A symbol's outputs: y, the decision's index and the valid flag (#5, and
-// #6 where the caller passes no step epilogue).  Invalid symbols are zeros.
+// #5's outputs of a symbol: y, the decision's index and the valid flag.
+// Invalid symbols are zeros.
 struct SymOut {
   float2* y;
   int* s;
@@ -230,7 +230,7 @@ struct SymOut {
   }
 };
 
-// #6's step epilogue: y and the valid flag, then the decision's k bits,
+// #6's outputs of a symbol: y and the valid flag, then the decision's k bits,
 // least significant first (waveform.symbol_indices_to_bits), and the flag
 // repeated k times, as bytes.  At k = 4 a lane stores each as one 4-byte
 // word, so a group's S lanes write S * 4 contiguous bytes.
@@ -614,12 +614,12 @@ __device__ __forceinline__ void named_bar(int id, int count) {
 // power is complete: the power EMA steps and superframe T's AGC pre-scale
 // goes into the scale ring.
 //
-// EP (the step epilogue, DecisionDemodSB.step's one launch): in place of
-// sidx the kernel writes the decisions' bits and the bits' valid flags
-// (BitsOut), the state rows with the pointer re-based to the next block
-// (ptr - n), and the input's last xoff samples, the next step's xtail, into
-// xt_out.  Every other result is the same, bit for bit.
-template <int KMAX, bool EP>
+// One launch is the whole of a DecisionDemodSB step: the consumers write y,
+// valid, the decisions' bits and the bits' valid flags (BitsOut) and the
+// state rows with the pointer re-based to the next block (ptr - n); the
+// producers copy the input's last xoff samples, the next step's xtail, into
+// xt_out.
+template <int KMAX>
 __global__ void __launch_bounds__(2 * SBF_THREADS)
 demod_sb_fused_kernel(const float2* __restrict__ x,
                       const float2* __restrict__ xtail, int xoff,
@@ -628,7 +628,7 @@ demod_sb_fused_kernel(const float2* __restrict__ x,
                       float* __restrict__ st_out,
                       const float2* __restrict__ sym, SbCfg c, int C, int nsb,
                       int tb, FusedLayout f, bool vec, float rms_ref,
-                      float2* __restrict__ y, int* __restrict__ sidx,
+                      float2* __restrict__ y,
                       unsigned char* __restrict__ valid,
                       unsigned char* __restrict__ bits,
                       unsigned char* __restrict__ bvalid, int k,
@@ -664,13 +664,8 @@ demod_sb_fused_kernel(const float2* __restrict__ x,
     const int bar_id = 1 + (G > 1 ? threadIdx.x / 64 : threadIdx.x / 32);
     SbState st = sb_load(st_in, cc, C);
     const long long ldo = (long long)nsb * S;
-    const auto out = [&] {
-      if constexpr (EP)
-        return BitsOut{y + cc * ldo, valid + cc * ldo, bits + cc * ldo * k,
-                       bvalid + cc * ldo * k, k};
-      else
-        return SymOut{y + cc * ldo, sidx + cc * ldo, valid + cc * ldo};
-    }();
+    const BitsOut out{y + cc * ldo, valid + cc * ldo, bits + cc * ldo * k,
+                      bvalid + cc * ldo * k, k};
     const int mask = f.RG - 1;
     float s = 1.f;
     const TapsClosed<KMAX> taps{c.itrp, c.nph, c.K, c.inv_nph};
@@ -683,7 +678,7 @@ demod_sb_fused_kernel(const float2* __restrict__ x,
                     taps, s, s_sym, out, active);
       named_bar(bar_id, bar_count);
     }
-    if (EP) st.ptr = fsub(st.ptr, (float)n);
+    st.ptr = fsub(st.ptr, (float)n);
     if (active && j == 0) sb_store(st_out, cc, C, st);
     return;
   }
@@ -794,7 +789,7 @@ demod_sb_fused_kernel(const float2* __restrict__ x,
     named_bar(bar_id, bar_count);
   }
   if (active && jp == 0) st_out[8 * C + cc] = p_ema;
-  if (EP && active) {   // x[n - xoff:], the next step's carried input
+  if (active) {   // x[n - xoff:], the next step's carried input
     const float2* src = xr + (n - xoff);
     float2* dst = xt_out + (long long)cc * xoff;
     if (vec) {
@@ -851,13 +846,12 @@ extern "C" int demod_sb_f32(const float2* zp, long long ldz,
   return (int)cudaGetLastError();
 }
 
-// bits == nullptr: #6's own contract (y, sidx, valid, the state rows);
-// else the step epilogue (EP above): y, valid, bits, bvalid (k bytes a
-// symbol), the rows with the pointer re-based, and xt_out; sidx unused.
+// #6: y, valid, bits, bvalid (k bytes a symbol), the rows with the pointer
+// re-based, and xt_out.
 extern "C" int demod_sb_fused_f32(
     const float2* x, const float2* xtail, int xoff, const float* h_mf, int kmf,
     const float* st_in, float* st_out, const float2* sym, int M, float2* y,
-    int* sidx, unsigned char* valid, int C, int nsb, int tb, int sfz, int S,
+    unsigned char* valid, int C, int nsb, int tb, int sfz, int S,
     int osf, int K, int nph, int itrp, int n, float rms_ref, float tgain,
     float aga, float gamma, float rho, int flags, int kmax, int smem_bytes,
     cudaStream_t stream, unsigned char* bits, unsigned char* bvalid, int k,
@@ -874,28 +868,21 @@ extern "C" int demod_sb_fused_f32(
   const unsigned blocks = (unsigned)((C + cpb - 1) / cpb);
   // consumer threads, then GP = G / 2 producer lanes a channel (1 at G = 1)
   const int threads = SBF_THREADS + cpb * (c.G > 1 ? c.G / 2 : 1);
-#define SB_FUSED_LAUNCH(KM, EP)                                              \
+#define SB_FUSED_LAUNCH(KM)                                                  \
   do {                                                                       \
-    cudaFuncSetAttribute(demod_sb_fused_kernel<KM, EP>,                      \
+    cudaFuncSetAttribute(demod_sb_fused_kernel<KM>,                          \
                          cudaFuncAttributeMaxDynamicSharedMemorySize,        \
                          smem_bytes);                                        \
-    demod_sb_fused_kernel<KM, EP><<<blocks, threads, smem_bytes, stream>>>(   \
+    demod_sb_fused_kernel<KM><<<blocks, threads, smem_bytes, stream>>>(      \
         x, xtail, xoff, h_mf, kmf, st_in, st_out, sym, c, C, nsb, tb, f,     \
-        vec, rms_ref, y, sidx, valid, bits, bvalid, k, xt_out);              \
+        vec, rms_ref, y, valid, bits, bvalid, k, xt_out);                    \
   } while (0)
-  const bool ep = bits != nullptr;
-  if (kmax == 4 && ep)
-    SB_FUSED_LAUNCH(4, true);
-  else if (kmax == 4)
-    SB_FUSED_LAUNCH(4, false);
-  else if (kmax == 16 && ep)
-    SB_FUSED_LAUNCH(16, true);
+  if (kmax == 4)
+    SB_FUSED_LAUNCH(4);
   else if (kmax == 16)
-    SB_FUSED_LAUNCH(16, false);
-  else if (ep)
-    SB_FUSED_LAUNCH(32, true);
+    SB_FUSED_LAUNCH(16);
   else
-    SB_FUSED_LAUNCH(32, false);
+    SB_FUSED_LAUNCH(32);
 #undef SB_FUSED_LAUNCH
   return (int)cudaGetLastError();
 }

@@ -24,14 +24,12 @@ Two paths with the same loop math:
   - ``"auto"`` / ``"cuda"``: matched filter (``Fir``, tier
     ``mf_precision``) -> block AGC -> kernel #5 (``ops.kernels.demod_sb``);
   - ``"cuda-fused"``: kernel #6, the matched filter (fp32) and a streaming
-    power-EMA AGC inside the kernel, from the raw input, with the step's
-    epilogue: the kernel also writes the bits, their valid flags, the
-    carried state and input tail.  The state is kept in #6's (9, C) row
-    layout (its loop entries are views of one rows tensor), so that a step
-    on a card is one launch and nothing else; a state in any other form
-    (restored from a checkpoint, converted from JAX) is stacked into rows
-    first.  ``DecisionDemodSB.row_steps`` and ``.stacked_steps`` count
-    the two.
+    power-EMA AGC inside the kernel, from the raw input; the kernel also
+    writes the bits, their valid flags, the carried state and input tail.
+    The state is kept in #6's (9, C) row layout (its loop entries are views
+    of one rows tensor, ``_ROWS``), so that a step on a card is one launch
+    and nothing else; a state in any other form (restored from a
+    checkpoint, converted from JAX) is stacked into rows first.
 
   A CPU tensor runs each kernel's plain version; a CUDA tensor runs the
   kernel or raises.  Any channel count C works.
@@ -97,11 +95,6 @@ class DecisionDemodSB(Block):
     (the carried tail), forward margin MH = 2 osf; a pointer outside
     [0, ML + MH] flags the sub-block invalid and re-anchors to the next
     nominal centre."""
-
-    # fused steps whose state was in #6's row layout (on a card: one
-    # launch), and those whose state was stacked into rows first
-    row_steps = 0
-    stacked_steps = 0
 
     def __init__(self, itrp, mf, wf, cfg: SBDemodConfig):
         super().__init__()
@@ -170,26 +163,21 @@ class DecisionDemodSB(Block):
 
     # --- state ----------------------------------------------------------
     def init(self):
-        dev = self.device
-        return dict(
-            mf=self.mf.init(),
-            lf=self._lf.init(dev),
-            theta=torch.zeros((), dtype=real_dtype, device=dev),
-            gain=torch.ones((), dtype=real_dtype, device=dev),
-            ptr=torch.tensor(self.cfg.osf / 2.0, dtype=real_dtype,
-                             device=dev),
-            yprev_ri=torch.zeros((2,), dtype=real_dtype, device=dev),
-            tail=torch.zeros((self.T,), dtype=complex_dtype, device=dev))
+        return dict(mf=self.mf.init(), **self._loop_state(()),
+                    tail=torch.zeros((self.T,), dtype=complex_dtype,
+                                     device=self.device))
+
+    def _initial_rows(self, nrows: int, b: tuple) -> torch.Tensor:
+        """(nrows, *b) rows at their initial values: #5's 8 or #6's 9."""
+        rows = torch.empty((nrows,) + b, dtype=real_dtype,
+                           device=self.device)
+        for _, r, w, v in _ROWS:
+            if r < nrows:
+                rows[r:r + w] = self.cfg.osf / 2.0 if v is None else v
+        return rows
 
     def _loop_state(self, b: tuple) -> dict:
-        dev = self.device
-        z = torch.zeros(b, dtype=real_dtype, device=dev)
-        return dict(
-            lf=(z, z.clone(), z.clone()), theta=z.clone(),
-            gain=torch.ones(b, dtype=real_dtype, device=dev),
-            ptr=torch.full(b, self.cfg.osf / 2.0, dtype=real_dtype,
-                           device=dev),
-            yprev_ri=torch.zeros(b + (2,), dtype=real_dtype, device=dev))
+        return _entries(self._initial_rows(8, b))
 
     def init_for(self, x: torch.Tensor):
         """Batched state for a (..., n) input (the fused layout for the
@@ -209,10 +197,7 @@ class DecisionDemodSB(Block):
         b = tuple(x.shape[:-1])
         lay = KSB.fused_layout(self.cfg.osf, self.cfg.S, self.itrp.K,
                                max(x.shape[-1], 1))
-        rows = torch.zeros((9,) + b, dtype=real_dtype, device=self.device)
-        rows[0] = self.cfg.osf / 2.0
-        rows[2] = 1.0
-        return _fused_state(rows, torch.zeros(
+        return _fused_state(self._initial_rows(9, b), torch.zeros(
             b + (lay["XOFF"],), dtype=complex_dtype, device=self.device))
 
     # --- step -----------------------------------------------------------
@@ -287,15 +272,10 @@ class DecisionDemodSB(Block):
         x = x.to(complex_dtype)
         with span("tsd.demod_sb.pack_state"):
             rows = _viewed_rows(state)
-            stacked = rows is None
-            if stacked:
+            if rows is None:
                 rows = _stack_rows(state)
         bits, y, valid, bvalid, rows, xtail = KSB.demod_sb_fused_step(
             x, state["xtail"], rows, self._fused_step(x))
-        if stacked:
-            DecisionDemodSB.stacked_steps += 1
-        else:
-            DecisionDemodSB.row_steps += 1
         with span("tsd.demod_sb.carry"):
             new_state = _fused_state(rows, xtail)
         with span("tsd.demod_sb.outputs"):
@@ -399,13 +379,46 @@ class DecisionDemodSB(Block):
         return new_state, (bits, syms, valid, bvalid)
 
 
+# The loop state as the kernels' rows (csrc/demod_sb.cu's sb_load; #6 adds
+# the power EMA as a ninth): each entry of the state dict, in the dict's
+# order, with its first row, its number of rows and its initial value (None:
+# the pointer's, osf / 2).  "lf" is a tuple of its rows; "yprev_ri" holds
+# its two (re, im) on its last axis.
+_ROWS = (("lf", 3, 3, 0.0), ("theta", 1, 1, 0.0), ("gain", 2, 1, 1.0),
+         ("ptr", 0, 1, None), ("yprev_ri", 6, 2, 0.0), ("p_ema", 8, 1, 0.0))
+
+
+def _entries(rows: torch.Tensor) -> dict:
+    """The state dict's loop entries as views of (8 or 9, ...) rows."""
+    one = rows.unbind(0)
+    n = len(one)
+    out = {}
+    for key, r, w, _ in _ROWS:
+        if r >= n:
+            continue
+        if w == 1:
+            out[key] = one[r]
+        elif key == "lf":
+            out[key] = one[r:r + w]
+        else:
+            out[key] = rows[r:r + w].movedim(0, -1)
+    return out
+
+
 def _stack_rows(state) -> torch.Tensor:
-    lf0, lf1, lf2 = state["lf"]
-    rows = [state["ptr"], state["theta"], state["gain"], lf0, lf1, lf2,
-            state["yprev_ri"][..., 0], state["yprev_ri"][..., 1]]
-    if "p_ema" in state:
-        rows.append(state["p_ema"])
-    return torch.stack(rows).to(real_dtype)
+    """The state's loop entries stacked as rows: 8, or 9 with p_ema."""
+    parts = []
+    for key, _, w, _ in sorted(_ROWS, key=lambda e: e[1]):
+        if key not in state:
+            continue
+        v = state[key]
+        if w == 1:
+            parts.append(v)
+        elif key == "lf":
+            parts += v
+        else:
+            parts += v.unbind(-1)
+    return torch.stack(parts).to(real_dtype)
 
 
 @spanned("tsd.demod_sb.pack_state")
@@ -416,11 +429,11 @@ def pack_state(state) -> torch.Tensor:
 
 
 def _fused_state(rows: torch.Tensor, xtail: torch.Tensor) -> dict:
-    """The fused engine's state dict over (9, ...) rows in #6's order: the
-    loop entries are views of rows (yprev_ri's re/im the last axis)."""
-    ptr, theta, gain, lf0, lf1, lf2, _, _, p_ema = rows.unbind(0)
-    return dict(lf=(lf0, lf1, lf2), theta=theta, gain=gain, ptr=ptr,
-                yprev_ri=rows[6:8].movedim(0, -1), p_ema=p_ema, xtail=xtail)
+    """The fused engine's state dict over (9, ...) rows: the loop entries
+    are views of rows."""
+    out = _entries(rows)
+    out["xtail"] = xtail
+    return out
 
 
 def _viewed_rows(state) -> torch.Tensor | None:
@@ -436,26 +449,28 @@ def _viewed_rows(state) -> torch.Tensor | None:
     if base.numel() != 9 * C:
         return None
     at, step = base.data_ptr(), C * base.element_size()
-    lf0, lf1, lf2 = state["lf"]
-    for r, t in ((0, ptr), (1, state["theta"]), (2, state["gain"]),
-                 (3, lf0), (4, lf1), (5, lf2), (8, state["p_ema"])):
-        if (t._base is not base or t.dtype is not real_dtype
-                or t.data_ptr() != at + r * step or t.stride() != (1,)
-                or t.shape != ptr.shape):
-            return None
-    yp = state["yprev_ri"]
-    if (yp._base is not base or yp.dtype is not real_dtype
-            or yp.data_ptr() != at + 6 * step or yp.stride() != (1, C)
-            or yp.shape != (C, 2)):
-        return None
+    one, unit = (C,), (1,)
+    for key, r, w, _ in _ROWS:
+        v = state[key]
+        if w == 1 or key == "lf":        # one row each
+            views, shape, stride = (v,) if w == 1 else v, one, unit
+            if len(views) != w:
+                return None
+        else:                            # w rows on the last axis
+            views, shape, stride = (v,), (C, w), (1, C)
+        for i, t in enumerate(views):
+            if (t._base is not base or t.dtype is not real_dtype
+                    or t.data_ptr() != at + (r + i) * step
+                    or t.stride() != stride or t.shape != shape):
+                return None
     return base if base.dim() == 2 else base.view(9, C)
 
 
 def _unpack(st: torch.Tensor, n: int) -> dict:
-    """(8 or 9, C) rows back to the state dict; the pointer is re-based
-    to the next block."""
-    return dict(lf=(st[3], st[4], st[5]), theta=st[1], gain=st[2],
-                ptr=st[0] - n, yprev_ri=torch.stack([st[6], st[7]], -1))
+    """(8 or 9, C) rows back to the state dict's loop entries (views of
+    st); the pointer is re-based to the next block."""
+    e = _entries(st)
+    return dict(e, ptr=e["ptr"] - n)
 
 
 def _tree_map(fn, tree):

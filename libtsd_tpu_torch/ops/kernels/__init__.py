@@ -15,7 +15,7 @@ WRAPPERS = {
     "fir_periodogram4096": chain.fir_periodogram4096,
     "fft_pow2": fft.fft_pow2,
     "demod_sb": demod_sb.demod_sb,
-    "demod_sb_fused": demod_sb.demod_sb_fused,
+    "demod_sb_fused": demod_sb.demod_sb_fused_step,
     "ola": ola.ola_stream,
     "detfront": detfront.detfront,
     "iir_cascade": iir.iir_cascade,

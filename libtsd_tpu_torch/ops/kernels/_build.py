@@ -51,9 +51,9 @@ SIGNATURES = {
     "fft_pow2_f32": [P, P, P, P, P, I, I, I, P],
     "demod_sb_f32": [P, I64, P, P, P, I, P, P, P, I, I, I, I, I, I, I, I, I,
                      F32, F32, F32, F32, I, I, P],
-    "demod_sb_fused_f32": [P, P, I, P, I, P, P, P, I, P, P, P, I, I, I, I, I,
-                           I, I, I, I, I, F32, F32, F32, F32, F32, I, I, I,
-                           P, P, P, I, P],
+    "demod_sb_fused_f32": [P, P, I, P, I, P, P, P, I, P, P, I, I, I, I, I, I,
+                           I, I, I, I, F32, F32, F32, F32, F32, I, I, I, P,
+                           P, P, I, P],
     "ola_f32": [P, P, P, P, P, I, I64, I, I, P],
     "detfront_f32": [P, P, P, P, P, P, P, I, I, I, I, P],
     "iir_cascade_f32": [P, P, P, P, P, P, P, P, I, I64, I, P, U32, P],

@@ -3,15 +3,16 @@
 
 * :func:`demod_sb` (#5) replaces ``libtsd_tpu/ops/pallas/demod_sb.py::
   demod_sb_pallas``: the sub-block loop over the matched filter's output.
-* :func:`demod_sb_fused` (#6) replaces ``demod_sb_pallas_fused``: the same
-  loop with the matched filter (fp32) and a streaming power-EMA AGC
-  pre-scale inside the kernel, from the raw input.
-* :func:`demod_sb_fused_step` is #6 with its step epilogue, the whole of a
-  ``DecisionDemodSB`` step on the fused engine in one launch: the kernel
-  writes the bits and their valid flags in place of the decisions'
-  indices, the state rows with the pointer re-based to the next block and
-  the carried input tail.  A :class:`FusedStep` holds what does not change
-  from step to step.
+* :func:`demod_sb_fused_step` (#6) replaces ``demod_sb_pallas_fused``: the
+  same loop with the matched filter (fp32) and a streaming power-EMA AGC
+  pre-scale inside the kernel, from the raw input.  One launch is the whole
+  of a ``DecisionDemodSB`` step on the fused engine: the kernel writes the
+  bits and their valid flags, the state rows with the pointer re-based to
+  the next block and the carried input tail.  A :class:`FusedStep` holds
+  what does not change from step to step.  Its plain version,
+  :func:`demod_sb_fused_step_plain`, puts the results of the loop's plain
+  version :func:`demod_sb_fused_plain` (the decisions' indices, as the JAX
+  kernel gives them) in the step's form.
 
 What bounds them on the H100 and what their design does about it is set
 out at the top of ``csrc/demod_sb.cu``: the loop is a chain of nsb
@@ -43,7 +44,7 @@ from ...utils.monitor import spanned
 from . import _build
 
 __all__ = ["LoopParams", "ITRP", "APW", "pick_tb", "fused_layout",
-           "interp_taps", "demod_sb", "demod_sb_plain", "demod_sb_fused",
+           "interp_taps", "demod_sb", "demod_sb_plain",
            "demod_sb_fused_plain", "fused_smem", "FusedStep",
            "demod_sb_fused_step", "demod_sb_fused_step_plain"]
 
@@ -362,12 +363,14 @@ def _fused_scales(z: torch.Tensor, p_ema: torch.Tensor, lay: dict,
 def demod_sb_fused_plain(x: torch.Tensor, xtail: torch.Tensor,
                          state9: torch.Tensor, sym: torch.Tensor,
                          h_mf: torch.Tensor, p: LoopParams, rms_ref: float):
-    """Plain PyTorch version of #6: the fp32 matched filter over
-    [xtail | x | zero pad] (direct form, the kernel's order, where the JAX
-    package's fused kernel rounds x and the taps to bf16 for its MXU), the
-    power EMA per superframe (applied one superframe late, a fresh stream
-    at scale 1), then #5's plain loop with those scales."""
-    lay = _check_fused(x, xtail, p)
+    """Plain PyTorch version of #6's loop, with the JAX kernel's results
+    (y, the decisions' indices, valid, the nine rows): the fp32 matched
+    filter over [xtail | x | zero pad] (direct form, the kernel's order,
+    where the JAX package's fused kernel rounds x and the taps to bf16 for
+    its MXU), the power EMA per superframe (applied one superframe late, a
+    fresh stream at scale 1), then #5's plain loop with those scales."""
+    lay = _fused_rules(x.shape[-1], p)
+    _check_xtail(xtail, lay)
     C, n = x.shape
     kmf = h_mf.shape[0]
     pad = lay["rows_total"] - lay["XOFF"] - n
@@ -386,10 +389,11 @@ def demod_sb_fused_plain(x: torch.Tensor, xtail: torch.Tensor,
 
 def demod_sb_fused_step_plain(x: torch.Tensor, xtail: torch.Tensor,
                               rows: torch.Tensor, plan: "FusedStep"):
-    """Plain PyTorch version of :func:`demod_sb_fused_step`: #6's plain
-    version, then its results in the step's form (the decisions' bits as
-    ``waveform.symbol_indices_to_bits`` unpacks them, the valid flags
-    repeated a bit, the pointer re-based, the input tail copied)."""
+    """Plain PyTorch version of :func:`demod_sb_fused_step`: the loop's,
+    :func:`demod_sb_fused_plain`, then its results in the step's form (the
+    decisions' bits as ``waveform.symbol_indices_to_bits`` unpacks them,
+    the valid flags repeated a bit, the pointer re-based, the input tail
+    copied)."""
     p, k = plan.p, plan.k
     y, sidx, valid, st9 = demod_sb_fused_plain(
         x, xtail, rows, plan.sym, plan.h_mf, p, plan.rms_ref)
@@ -425,13 +429,6 @@ def _check_xtail(xtail, lay: dict) -> None:
     if xtail.shape[-1] != lay["XOFF"]:
         raise ValueError(f"xtail holds {xtail.shape[-1]} samples, the "
                          f"layout carries {lay['XOFF']}")
-
-
-def _check_fused(x, xtail, p: LoopParams) -> dict:
-    """The fused engine's block rules, with the JAX package's messages."""
-    lay = _fused_rules(x.shape[-1], p)
-    _check_xtail(xtail, lay)
-    return lay
 
 
 # ------------------------------------------------------------- kernels
@@ -521,47 +518,6 @@ def demod_sb(zp: torch.Tensor, state8: torch.Tensor, sym: torch.Tensor,
 demod_sb.launches = 0
 
 
-@spanned("tsd.kernels.demod_sb_fused")
-def demod_sb_fused(x: torch.Tensor, xtail: torch.Tensor,
-                   state9: torch.Tensor, sym: torch.Tensor,
-                   h_mf: torch.Tensor, p: LoopParams, rms_ref: float):
-    """#6.  x (C, n) complex raw input, xtail (C, XOFF) the input carried
-    from the last block, state9 (9, C), h_mf (Kmf,) float32 matched-filter
-    taps (Kmf <= 129).  Same results as :func:`demod_sb_fused_plain`."""
-    if _build.use_plain(x):
-        return demod_sb_fused_plain(x, xtail, state9, sym, h_mf, p, rms_ref)
-    lay = _check_fused(x, xtail, p)
-    _check_kernel(p, sym)
-    kmf = h_mf.shape[0]
-    _check_kmf(kmf)
-    C, n = x.shape
-    x = x.to(complex_dtype).contiguous()
-    xtail = xtail.to(complex_dtype).contiguous()
-    state9 = state9.to(real_dtype).contiguous()
-    sym = sym.to(complex_dtype).contiguous()
-    h_mf = h_mf.to(device=x.device, dtype=real_dtype).contiguous()
-    y, sidx, valid = _outputs(C, p, x.device)
-    st = torch.empty_like(state9)
-    _build.require_cuda(x, xtail, state9, sym, h_mf, y, sidx, valid, st)
-    smem = _fused_smem_bytes(p, lay, kmf, sym.shape[0])
-    if C:
-        err = _build.lib().demod_sb_fused_f32(
-            _build.ptr(x), _build.ptr(xtail), lay["XOFF"], _build.ptr(h_mf),
-            kmf, _build.ptr(state9), _build.ptr(st), _build.ptr(sym),
-            sym.shape[0], _build.ptr(y), _build.ptr(sidx), _build.ptr(valid),
-            C, p.nsb, lay["tb"], lay["SFZ"], p.S, p.osf, p.K, p.nph,
-            ITRP[p.itrp], n, rms_ref, p.tgain, p.aga, p.gamma, p.rho,
-            p.flags, _kmax(p.K), smem, _build.stream_ptr(x.device),
-            None, None, 0, None)
-        _build.check(err, "demod_sb_fused_f32")
-        demod_sb_fused.launches += 1
-    return y, sidx, valid, st
-
-
-# #6's launches, through this wrapper and through demod_sb_fused_step
-demod_sb_fused.launches = 0
-
-
 def _check_kmf(kmf: int) -> None:
     if not 0 < kmf <= 129:
         raise ValueError(f"the fused engine takes 1..129 matched-filter "
@@ -594,16 +550,16 @@ class FusedStep:
         self.lay = _fused_rules(p.n, p)
         self.sym = sym.to(device=device, dtype=complex_dtype).contiguous()
         self.h_mf = h_mf.to(device=device, dtype=real_dtype).contiguous()
-        if self.sym.device.type != "cuda":
+        self.device = self.sym.device
+        self.x_shape = torch.Size((C, p.n))
+        self.rows_shape = torch.Size((9, C))
+        if self.device.type != "cuda":
             return
         _check_kernel(p, self.sym)
         lay = self.lay
         kmf = self.h_mf.shape[0]
         _check_kmf(kmf)
         smem = _fused_smem_bytes(p, lay, kmf, self.sym.shape[0])
-        self.device = self.sym.device
-        self.x_shape = torch.Size((C, p.n))
-        self.rows_shape = torch.Size((9, C))
         self._ready = []
         # pointers as ints: the entry point's argtypes make them 64-bit
         self.launch = _build.lib().demod_sb_fused_f32
@@ -627,10 +583,10 @@ class FusedStep:
         if rows.shape != self.rows_shape:
             raise ValueError(f"state rows {tuple(rows.shape)}, the fused "
                              f"layout takes {tuple(self.rows_shape)}")
-        idx = self.device.index
+        idx = self.device.index     # None for a plan made off the card
         if (x.get_device() != idx or xtail.get_device() != idx
                 or rows.get_device() != idx):
-            _build.require_cuda(self.sym, x, xtail, rows)
+            _build.require_cuda(x, xtail, rows, self.sym)
 
     def results(self, stream: int) -> tuple:
         """A step's fresh result tensors (bits, y, valid, bit_valid, rows,
@@ -668,9 +624,9 @@ def _dense(t: torch.Tensor, dtype) -> torch.Tensor:
 @spanned("tsd.kernels.demod_sb_fused")
 def demod_sb_fused_step(x: torch.Tensor, xtail: torch.Tensor,
                         rows: torch.Tensor, plan: FusedStep):
-    """#6 with the step epilogue: x (C, n) complex64 raw input, xtail
-    (C, XOFF) the input carried from the last block, rows (9, C) float32
-    the state's rows.  Returns fresh tensors: bits (C, m k) int8 (each
+    """#6: x (C, n) complex64 raw input, xtail (C, XOFF) the input carried
+    from the last block, rows (9, C) float32 the state's rows, plan made
+    for x's device.  Returns fresh tensors: bits (C, m k) int8 (each
     decision's k bits, least significant first), y (C, m) complex64, valid
     (C, m) bool, bit_valid (C, m k) bool, the rows after the block with
     the pointer re-based to the next one (ptr - n), and x's last XOFF
@@ -688,10 +644,13 @@ def demod_sb_fused_step(x: torch.Tensor, xtail: torch.Tensor,
         bits, y, valid, bvalid, st, xt = out
         err = plan.launch(
             x.data_ptr(), xtail.data_ptr(), *plan.a_mf, rows.data_ptr(),
-            st.data_ptr(), *plan.a_sym, y.data_ptr(), None, valid.data_ptr(),
+            st.data_ptr(), *plan.a_sym, y.data_ptr(), valid.data_ptr(),
             *plan.a_loop, stream, bits.data_ptr(), bvalid.data_ptr(),
             plan.k, xt.data_ptr())
         _build.check(err, "demod_sb_fused_f32")
-        demod_sb_fused.launches += 1
+        demod_sb_fused_step.launches += 1
         plan.prepare(stream)
     return out
+
+
+demod_sb_fused_step.launches = 0

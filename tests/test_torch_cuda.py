@@ -382,34 +382,14 @@ def test_demod_sb_kernel_bit_identical(dev, M, C, S, itrp, n, odd):
         st = dd.step(st, xb)[0]
 
 
-@pytest.mark.parametrize("M,C", [(4, 200), (16, 77)])
-def test_demod_sb_fused_kernel(dev, M, C):
-    """#6 against its plain version on two consecutive blocks (carried
-    input tail, pointer and power EMA)."""
-    from libtsd_tpu_torch.models.demod_sb import (DecisionDemodSB,
-                                                  SBDemodConfig, pack_state)
-    from libtsd_tpu_torch.ops.kernels import demod_sb as KSB
-    wf, _, x = _qam(dev, M, C, 1200, M)
-    dd = DecisionDemodSB.create(wf, SBDemodConfig(osf=4, S=16,
-                                                  engine="cuda-fused"),
-                                device=dev)
-    st = dd.init_for(x)
-    for xb in (x[:, :2048], x[:, 2048:4096]):
-        p = dd.loop_params(xb.shape[-1])
-        args = (xb, st["xtail"], pack_state(st), wf.symbols, dd.h_mf, p,
-                dd.rms_ref)
-        before = KSB.demod_sb_fused.launches
-        k = KSB.demod_sb_fused(*args)
-        assert KSB.demod_sb_fused.launches == before + 1
-        _demod_gates(k, KSB.demod_sb_fused_plain(*args), wf.info.k)
-        st = dd.step(st, xb)[0]
-
-
-# #6's rings against its plain version, bit for bit: S 8 (four channels a
+# #6 against its plain version, bit for bit (bits, bit flags, y, valid, the
+# nine rows and the input tail), over half the symbols valid and the rows
+# finite: QPSK and QAM-16; S 8 (four channels a
 # warp), 16 and 32 (one a warp); nsb giving tb 8, 2 and 1; the 129-tap
 # matched filter; C = 1 and C not a multiple of a block's channels; three
-# consecutive blocks, each from the kernel's carried state and input tail.
-@pytest.mark.parametrize("S,n,tb,kmf,C,M", [(16, 2048, 8, 0, 77, 16),
+# consecutive blocks, each from the kernel's carried rows and input tail.
+@pytest.mark.parametrize("S,n,tb,kmf,C,M", [(16, 2048, 8, 0, 200, 4),
+                                            (16, 2048, 8, 0, 77, 16),
                                             (16, 640, 2, 0, 1, 4),
                                             (16, 576, 1, 129, 40, 4),
                                             (8, 2048, 8, 0, 33, 4),
@@ -428,22 +408,22 @@ def test_demod_sb_fused_rings_bit_identical(dev, S, n, tb, kmf, C, M):
         h_mf = torch.as_tensor(np.random.default_rng(kmf).standard_normal(
             kmf).astype(np.float32) / np.sqrt(kmf), device=dev)
     st = dd.init_for(x[:, :n])
-    xtail, s9 = st["xtail"], pack_state(st)
+    xtail, rows = st["xtail"], pack_state(st)
     p = dd.loop_params(n)
     assert KSB.fused_layout(4, S, p.K, n)["tb"] == tb
+    plan = KSB.FusedStep(C, p, wf.symbols, h_mf, dd.rms_ref, wf.info.k, dev)
     for blk in range(3):
         xb = x[:, blk * n:(blk + 1) * n].contiguous()
-        args = (xb, xtail, s9, wf.symbols, h_mf, p, dd.rms_ref)
-        before = KSB.demod_sb_fused.launches
-        yk, sk, vk, stk = KSB.demod_sb_fused(*args)
-        assert KSB.demod_sb_fused.launches == before + 1
-        yp, sp, vp, stp = KSB.demod_sb_fused_plain(*args)
+        before = KSB.demod_sb_fused_step.launches
+        got = KSB.demod_sb_fused_step(xb, xtail, rows, plan)
+        assert KSB.demod_sb_fused_step.launches == before + 1
+        want = KSB.demod_sb_fused_step_plain(xb, xtail, rows, plan)
         torch.cuda.synchronize()
-        assert torch.equal(vk, vp) and torch.equal(sk, sp)
-        assert (yk - yp).abs().max().item() == 0
-        assert (stk - stp).abs().max().item() == 0
-        xtail = torch.cat([xtail, xb], 1)[:, -xtail.shape[1]:].contiguous()
-        s9 = stk
+        for u, v in zip(got, want):
+            assert u.shape == v.shape and u.dtype == v.dtype
+            assert torch.equal(u, v)
+        assert got[2].float().mean() > 0.5 and torch.isfinite(got[4]).all()
+        rows, xtail = got[4], got[5]
 
 
 @pytest.mark.parametrize("engine", ["cuda", "cuda-fused"])
@@ -489,16 +469,16 @@ def test_demod_kernels_without_build_raise(dev, tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc"):
         KSB.demod_sb(zp, pack_state(st), wf.symbols, p)
     with pytest.raises(RuntimeError, match="nvcc"):
-        KSB.demod_sb_fused(x, stf["xtail"], pack_state(stf), wf.symbols,
-                           ddf.h_mf, p, ddf.rms_ref)
+        KSB.demod_sb_fused_step(x, stf["xtail"], pack_state(stf),
+                                ddf._fused_step(x))
 
 
-# --------------------------------- #6's step epilogue: DecisionDemodSB.step
+# ------------------------------------------- #6 as DecisionDemodSB.step
 # The fused engine's step is one launch of #6 that writes the bits, their
 # valid flags, the state rows (pointer re-based) and the carried input
-# tail.  It is held bit for bit to the route the step composed around #6's
-# own contract: symbol_indices_to_bits and repeat_interleave on its
-# indices and flags, _unpack and a copy of the input's tail.  A state
+# tail.  It is held bit for bit to a step composed around #6's plain loop
+# (demod_sb_fused_plain): symbol_indices_to_bits and repeat_interleave on
+# its indices and flags, _unpack and a copy of the input's tail.  A state
 # restored from a checkpoint or converted as from JAX is stacked into rows
 # at its first step.
 
@@ -507,12 +487,11 @@ def _composed_fused_step(dd, st, xb):
     from libtsd_tpu_torch.models.waveform import symbol_indices_to_bits
     from libtsd_tpu_torch.ops.kernels import demod_sb as KSB
     n, k = xb.shape[-1], dd.wf.info.k
-    y, sidx, valid, st9 = KSB.demod_sb_fused(
+    y, sidx, valid, st9 = KSB.demod_sb_fused_plain(
         xb, st["xtail"], pack_state(st), dd.wf.symbols, dd.h_mf,
         dd.loop_params(n), dd.rms_ref)
     xoff = st["xtail"].shape[-1]
-    new = dict(_unpack(st9, n), p_ema=st9[8],
-               xtail=xb[:, n - xoff:].clone())
+    new = dict(_unpack(st9, n), xtail=xb[:, n - xoff:].clone())
     return new, (symbol_indices_to_bits(sidx, k), y, valid,
                  valid.repeat_interleave(k, dim=-1))
 
@@ -560,14 +539,11 @@ def test_fused_step_one_launch_bit_identical(dev, C, n, form, tmp_path):
     st = ref = _state_as(form, st, tmp_path)
     for i in range(1, 5):
         xb = x[:, i * n:(i + 1) * n].contiguous()
-        rows0, stacked0 = DecisionDemodSB.row_steps, \
-            DecisionDemodSB.stacked_steps
-        launches = KSB.demod_sb_fused.launches
-        st, out = dd.step(st, xb)
-        assert KSB.demod_sb_fused.launches == launches + 1
         fell_back = i == 1 and form != "own"
-        assert DecisionDemodSB.stacked_steps - stacked0 == int(fell_back)
-        assert DecisionDemodSB.row_steps - rows0 == int(not fell_back)
+        assert (_viewed_rows(st) is None) == fell_back
+        launches = KSB.demod_sb_fused_step.launches
+        st, out = dd.step(st, xb)
+        assert KSB.demod_sb_fused_step.launches == launches + 1
         ref, want = _composed_fused_step(dd, ref, xb)
         torch.cuda.synchronize()
         for u, v in zip(out, want):
@@ -580,11 +556,11 @@ def test_fused_step_one_launch_bit_identical(dev, C, n, form, tmp_path):
 
 def test_fused_step_is_one_kernel(dev, tmp_path):
     """A traced step from a state in row layout launches #6 and no other
-    kernel, copy or set; the route counter advances by one."""
+    kernel, copy or set."""
     import json
     from torch.profiler import ProfilerActivity, profile
     from libtsd_tpu_torch.models.demod_sb import (DecisionDemodSB,
-                                                  SBDemodConfig)
+                                                  SBDemodConfig, _viewed_rows)
     n = 8192
     wf, _, x = _qam(dev, 16, 256, 2 * n // 4 + 64, 21)
     dd = DecisionDemodSB.create(wf, SBDemodConfig(osf=4, S=16,
@@ -593,13 +569,11 @@ def test_fused_step_is_one_kernel(dev, tmp_path):
     x0, x1 = x[:, :n].contiguous(), x[:, n:2 * n].contiguous()
     st = dd.step(dd.init_for(x0), x0)[0]
     torch.cuda.synchronize()
-    rows0, stacked0 = DecisionDemodSB.row_steps, DecisionDemodSB.stacked_steps
+    assert _viewed_rows(st) is not None
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         dd.step(st, x1)
         torch.cuda.synchronize()
-    assert DecisionDemodSB.row_steps == rows0 + 1
-    assert DecisionDemodSB.stacked_steps == stacked0
     prof.export_chrome_trace(str(tmp_path / "step.json"))
     ev = json.loads((tmp_path / "step.json").read_text())["traceEvents"]
     work = [e["name"] for e in ev

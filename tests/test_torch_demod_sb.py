@@ -45,8 +45,8 @@ from libtsd_tpu.ops.fft import delay_signal as delay_j
 from libtsd_tpu_torch.models import ber as BERt
 from libtsd_tpu_torch.models import waveform as WFt
 from libtsd_tpu_torch.models.demod_sb import (DecisionDemodSB, SBDemodConfig,
-                                              _unpack, _viewed_rows,
-                                              pack_state)
+                                              _tree_map, _unpack,
+                                              _viewed_rows, pack_state)
 from libtsd_tpu_torch.models.modulator import ModConfig, Modulator
 from libtsd_tpu_torch.ops.kernels import _build, demod_sb as KSB
 from libtsd_tpu_torch.utils.checkpoint import load_state, save_state
@@ -242,16 +242,15 @@ def test_fused_matches_jax_interpret(fused_runs):
 # The fused engine keeps its state in #6's (9, C) row layout (the loop
 # entries are views of one rows tensor) and, on a card, runs a step as one
 # launch that writes the bits, state and input tail.  Its plain route here
-# is held to the route the step composed around #6's own contract.
+# is held to a step composed around the plain loop, demod_sb_fused_plain.
 
 def _composed_fused_step(dd, st, xb):
     n, k = xb.shape[-1], dd.wf.info.k
-    y, sidx, valid, st9 = KSB.demod_sb_fused(
+    y, sidx, valid, st9 = KSB.demod_sb_fused_plain(
         xb, st["xtail"], pack_state(st), dd.wf.symbols, dd.h_mf,
         dd.loop_params(n), dd.rms_ref)
     xoff = st["xtail"].shape[-1]
-    new = dict(_unpack(st9, n), p_ema=st9[8],
-               xtail=xb[:, n - xoff:].clone())
+    new = dict(_unpack(st9, n), xtail=xb[:, n - xoff:].clone())
     return new, (WFt.symbol_indices_to_bits(sidx, k), y, valid,
                  valid.repeat_interleave(k, dim=-1))
 
@@ -272,8 +271,8 @@ def test_fused_step_rows_match_the_composed_route(fused_runs, tmp_path,
     """From the port's own fused state, the same restored from a checkpoint
     and JAX's converted by demod_state_from_jax: two steps give the
     composed route's outputs and state dict bit for bit, the state in row
-    layout; the first step from a restored or converted state is counted
-    as stacked, every other one as in row layout."""
+    layout; only the first step from a restored or converted state takes a
+    state that is not in row layout (and stacks it)."""
     dt, _, (sj, _), (st, _) = fused_runs
     assert _viewed_rows(st) is not None
     if form == "checkpoint":
@@ -286,12 +285,9 @@ def test_fused_step_rows_match_the_composed_route(fused_runs, tmp_path,
     ref = st
     for i in range(2):
         xb = x[:, i * 1152:(i + 1) * 1152]
-        rows0, stacked0 = DecisionDemodSB.row_steps, \
-            DecisionDemodSB.stacked_steps
-        st, out = dt.step(st, xb)
         fell_back = i == 0 and form != "own"
-        assert DecisionDemodSB.stacked_steps - stacked0 == int(fell_back)
-        assert DecisionDemodSB.row_steps - rows0 == int(not fell_back)
+        assert (_viewed_rows(st) is None) == fell_back
+        st, out = dt.step(st, xb)
         ref, want = _composed_fused_step(dt, ref, xb)
         for u, v in zip(out, want):
             assert u.shape == v.shape and u.dtype == v.dtype
@@ -323,12 +319,13 @@ def test_fused_state_layout_as_before(lead):
         assert v._base is rows
     g = torch.Generator().manual_seed(9)
     x = torch.complex(*torch.randn((2,) + lead + (2 * 512,), generator=g))
-    rows0 = DecisionDemodSB.row_steps
+    C = int(np.prod(lead))
     for i in range(2):
+        flat = _tree_map(lambda a: a.reshape((C,) + a.shape[len(lead):]), st)
+        assert _viewed_rows(flat) is not None
         st, out = dd.step(st, x[..., i * 512:(i + 1) * 512])
         assert out[0].shape == lead + (4 * 128,)
         assert st["yprev_ri"].shape == lead + (2,)
-    assert DecisionDemodSB.row_steps == rows0 + 2
 
 
 def test_fused_step_keeps_earlier_results():
@@ -469,7 +466,8 @@ def test_pointer_outside_margins_recovers(qpsk):
 def test_demod_wrappers_have_no_fallback(monkeypatch):
     """Kernels #5 and #6: a tensor neither on the CPU nor on CUDA gets no
     path; a wrapper routed to its kernel raises where it cannot launch it
-    instead of running its plain version."""
+    instead of running its plain version (#6 with a step plan made for
+    the CPU: a ValueError, not a missing attribute)."""
     dd = DecisionDemodSB.create(
         WFt.wf_qpsk(WFt.PulseShape.rcs(0.25), device="cpu"),
         SBDemodConfig(osf=4, S=16), device="cpu")
@@ -481,9 +479,9 @@ def test_demod_wrappers_have_no_fallback(monkeypatch):
     _, zp = dd.matched_zp(st, x)
     p = dd.loop_params(512)
     calls = [lambda z: KSB.demod_sb(z, pack_state(st), dd.wf.symbols, p),
-             lambda z: KSB.demod_sb_fused(
-                 z[:, :512], stf["xtail"], pack_state(stf), dd.wf.symbols,
-                 dd.h_mf, p, dd.rms_ref)]
+             lambda z: KSB.demod_sb_fused_step(
+                 z[:, :512], stf["xtail"], pack_state(stf),
+                 ddf._fused_step(x))]
     for call in calls:
         with pytest.raises(ValueError, match="device"):
             call(torch.empty(zp.shape, dtype=zp.dtype, device="meta"))

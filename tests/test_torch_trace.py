@@ -239,7 +239,8 @@ def test_spans_cover_their_device_work_on_the_card(dev, path):
     from libtsd_tpu_torch.ops.kernels import chain, demod_sb, fft, welch
     # each wrapper's span, the wrapper and the kernels it launches
     wrappers = {
-        "demod_sb": [("tsd.kernels.demod_sb_fused", demod_sb.demod_sb_fused,
+        "demod_sb": [("tsd.kernels.demod_sb_fused",
+                      demod_sb.demod_sb_fused_step,
                       ["demod_sb_fused_kernel"])],
         "psd_welch": [
             ("tsd.kernels.welch_frames", welch.welch_frames,
