@@ -37,10 +37,11 @@ timed other, this, this, other with ``chip_smoke.time_ms``; #2-#4 and #11
 are held to this tree's plain version (1e-4 of the peak; the spectra also
 1e-3 per bin).  --stages also builds this tree's kernels with
 -DCHAIN_FIR_ONLY (the fused chain without its FFT stage, into
-build/fir_only/) and times #3 whole and FIR-only in turns at every tier:
-the split of the fused call between its window-and-FIR and its FFT
-stages.  Needs one CUDA card; prints the
-card's name and power limit first.
+build/fir_only/: chain_body.cuh's and chain_wg.cu's bodies alike) and
+times #3 whole and FIR-only in turns at every tier, each on the body it
+takes (the wgmma body at passes 1-2): the split of the fused call
+between its window-and-FIR and its FFT stages.  Needs one CUDA card;
+prints the card's name and power limit first.
 """
 from __future__ import annotations
 

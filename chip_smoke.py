@@ -840,6 +840,15 @@ def main_bounds_and_library(h, mp, dev) -> dict:
                     2 * K * C_MAIN * N_MAIN + spec)
     print(f"bound fir_periodogram4096 highest (fp32 FIR): {hb:.4f} ms by "
           f"{hby}")
+    # #3's wgmma body (csrc/chain_wg.cu) as it stands: 64-phase Toeplitz
+    # blocks, E = 5 at K = 256, 640 tensor flops a sample and pass
+    from libtsd_tpu_torch.ops.kernels import chain
+    E = (K + 62) // 64 + 1
+    wb, wby = bound(2 * C_MAIN * N_MAIN + 4 * C_MAIN * NFFT + 4 * K, spec,
+                    2 * 2 * 64 * E * C_MAIN * N_MAIN)
+    print(f"bound fir_periodogram4096 int16/2 on the wgmma body (K <= "
+          f"{chain.K_MAX_WG}; {2 * 64 * E} tensor flops a sample and pass): "
+          f"{wb:.4f} ms by {wby}")
     for name, (bms, by) in out.items():
         lt = lib[name]
         print(f"bound {name}: {bms:.4f} ms by {by}; library call "
@@ -3550,9 +3559,14 @@ def main() -> int:
 
     t_phase = time.perf_counter()
     kernels.reset_launches()
+    wg0 = kernels.chain.fir_periodogram4096.wg_launches
     mp = main_path(h, gen, dev)
     launches = {k: v for k, v in kernels.launches().items()
                 if k in PATH_KERNELS["main"]}
+    print(f"launches #3 on the main path: "
+          f"{launches['fir_periodogram4096']}, of which on the wgmma body "
+          f"(wg_launches): "
+          f"{kernels.chain.fir_periodogram4096.wg_launches - wg0}")
     for k, d in main_path_checks(mp).items():
         errs[k] = max(errs[k], d)
     t = timings(h, mp, dev)

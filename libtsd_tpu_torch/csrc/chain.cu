@@ -5,8 +5,16 @@
 // design are those of chain::chain_frames (chain_body.cuh), which kernel
 // #11 (chain_halo.cu) shares: the FIR of the bf16 tiers on the tensor
 // cores, the fp32 one on the FMA pipes, the FFT on fft_reg.cuh with two
-// real frames per complex transform.
+// real frames per complex transform.  The tensor-core tiers with one tap
+// plane (passes 1-2) and K <= chain_wg::K_MAX take chain_wg.cu's body (the
+// FIR on wgmma, overlapped with the FFT of the pairs before); passes 0 and
+// 3, and larger K, take chain_frames.
 #include "chain_body.cuh"
+
+int chain_wg_launch(const void* x, const void* hist, const float* taps,
+                    const float* tw, float* out, int dtype, int passes,
+                    long long N, int C, int K, int hist_len, int hist_stride,
+                    cudaStream_t stream);
 
 template <typename T, int kPasses>
 __global__ void __launch_bounds__(chain::THREADS, chain::MIN_BLOCKS)
@@ -50,6 +58,9 @@ extern "C" int fir_periodogram4096(const void* x, const void* hist,
                                    long long N, int C, int K, int hist_len,
                                    int hist_stride, cudaStream_t stream) {
   if (C <= 0 || N < chain::NF) return 0;
+  const int wg = chain_wg_launch(x, hist, taps, tw, out, dtype, passes, N, C,
+                                 K, hist_len, hist_stride, stream);
+  if (wg >= 0) return wg;
 #define CHAIN_LAUNCH(T, P) \
   launch<T, P>(x, hist, taps, tw, out, N, C, K, hist_len, hist_stride, stream)
   switch (dtype * 4 + passes) {

@@ -8,7 +8,12 @@ bf16 tiers runs on the tensor cores (``mma.sync`` bf16 -> fp32, the JAX
 kernel's banded-Toeplitz products), the fp32 one on the FMA pipes, and the
 FFT-4096 takes two real frames per complex transform on the
 register-resident core ``csrc/fft_reg.cuh``; the FIR output never leaves
-shared memory.
+shared memory.  The tensor-core tiers with one tap plane (passes 1 and 2:
+bf16, int8, int16/2, split/2) with K <= ``K_MAX_WG`` taps take the body
+of ``csrc/chain_wg.cu`` instead (:func:`wg_route`): the FIR on ``wgmma``,
+issued by two warpgroups on alternate pairs while two others run the FFT
+of the pairs before.  ``fir_periodogram4096.wg_launches`` counts the
+launches that took it, beside ``launches``.
 
 Tiers (``precision``), as in the JAX package.  x1 = bf16(x), x2 = bf16(x
 - x1), x3 = bf16(x - x1 - x2), and h1, h2, h3 likewise from the taps h;
@@ -116,10 +121,27 @@ def _passes(precision: str, fir_passes: int) -> int:
     return 1 if precision in ("bf16", "int8") else fir_passes
 
 
+K_MAX_WG = 257   # chain_wg::K_MAX: E_MAX = 5 tap blocks of 64
+
+
+def wg_route(passes: int, K: int) -> bool:
+    """True where #3 runs the wgmma body (``csrc/chain_wg.cu``; the C
+    entry's ``chain_wg_launch`` decides the same): passes 1 or 2 with at
+    most ``K_MAX_WG`` taps.  #11 always runs ``chain_frames``."""
+    return passes in (1, 2) and K <= K_MAX_WG
+
+
 def smem_bytes(passes: int, K: int, sample_bytes: int) -> int:
-    """Dynamic shared memory of a fused-chain block (``chain::smem_bytes``
-    in ``csrc/chain_body.cuh``; keep the two in step): passes 0 with K
-    padded taps, passes >= 1 with K taps, samples of ``sample_bytes``."""
+    """Dynamic shared memory of a fused-chain block, of the body #3 takes
+    (``chain_wg::smem_bytes`` in ``csrc/chain_wg.cu`` on :func:`wg_route`,
+    else ``chain::smem_bytes`` in ``csrc/chain_body.cuh``; keep them in
+    step): passes 0 with K padded taps, passes >= 1 with K taps, samples
+    of ``sample_bytes``.  Where #3 takes the wgmma body, #11's
+    ``chain_frames`` needs less at the same K."""
+    if wg_route(passes, K):
+        xplane = 8 * 16 * ((256 + 2 * NFFT) // 64 + 1)
+        planes = 2 * (NFFT + NFFT // 32) * 8    # two pairs, float2 slots
+        return 128 + planes + 5 * 64 * 64 * 2 + 2 * passes * xplane
     planes = 2 * (NFFT + NFFT // 32) * 4
     if passes == 0:
         return planes + (2 * NFFT + K) * 4 + K * 4
@@ -255,7 +277,9 @@ def fir_periodogram4096(x: torch.Tensor, G: torch.Tensor,
         hist_stride, _build.stream_ptr(x.device))
     _build.check(err, "fir_periodogram4096")
     fir_periodogram4096.launches += 1
+    fir_periodogram4096.wg_launches += wg_route(passes, K)
     return out
 
 
 fir_periodogram4096.launches = 0
+fir_periodogram4096.wg_launches = 0

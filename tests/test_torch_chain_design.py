@@ -434,3 +434,445 @@ def test_pair_identity_with_a_lone_frame():
         want = (np.abs(np.fft.fft(y[f:f + (2 if pair else 1)], axis=-1))
                 ** 2).sum(0)
         assert rel(S, want) < 1e-12
+
+
+# ======================================================== the wgmma body
+# numpy model of ``csrc/chain_wg.cu``, #3's body for passes 1-2 at K <=
+# 257: the 64 x 64 Toeplitz tap tiles and the window's bf16 planes in
+# wgmma's K-major layout without a swizzle, the A and B descriptors of
+# every tap block, step and plane, the accumulators' map (PTX ISA) and
+# their float2 stores into the FFT's planes, and the block's walk over
+# pair slots with its windows, planes and mbarrier phases.  The header
+# says it is kept in step with this file; edit both together.
+
+WG_EMAX = 5
+WG_KMAX = 64 * (WG_EMAX - 1) + 1
+WG_HALO = 64 * (WG_EMAX - 1)
+WG_WIN = WG_HALO + 2 * NF
+WG_WROWS = WG_WIN // 64
+WG_LBO = 16 * (WG_WROWS + 1)
+WG_XPLANE = 8 * WG_LBO
+WG_TILE_LBO = 8 * 128
+WG_PLANE = NF + NF // 32
+WG_TILE_BYTES = 8 * WG_TILE_LBO
+WG_SBO = 128
+WG_WIN0 = 5 * 64 * 64 * 2 + 4096    # the window's shared byte address
+WARP4 = np.arange(4)
+
+
+def wg_blocks(K):
+    """E: tap blocks of 64 phases, ceil((K - 1) / 64) + 1."""
+    return (K + 62) // 64 + 1
+
+
+def wg_tap_tiles(h, K):
+    """put_tiles: tile e < E_MAX holds A[j][i] = h[64 e + j - i] (zero
+    outside 0 <= k < K), chunk (j, c) (i = 8 c .. 8 c + 7) at e TILE_BYTES
+    + c TILE_LBO + 16 j.  Returns the tiles' bf16 values by element, and
+    checks that each quarter warp's 16-byte stores (chunk ci = tid + 128
+    k: j fastest) hit 8 distinct bank quads."""
+    h = np.asarray(h, np.float64)
+    mem = np.full(WG_EMAX * WG_TILE_BYTES // 2, np.nan)
+    ci = np.arange(WG_EMAX * 8 * 64)
+    j, c, e = ci & 63, (ci >> 6) & 7, ci >> 9
+    base = e * WG_TILE_BYTES + c * WG_TILE_LBO + 16 * j
+    for q in range(0, len(ci), 8):
+        assert len(set(((base[q:q + 8] // 16) % 8).tolist())) == 8
+    for r in range(8):
+        k = 64 * e + j - 8 * c - r
+        mem[base // 2 + r] = np.where((k >= 0) & (k < K),
+                                      h[np.clip(k, 0, K - 1)], 0.0)
+    return mem
+
+
+def wg_d_map(N=128):
+    """wgmma m64nN f32 accumulators: d[i] of lane (g, t), warp w is row 16
+    w + g + 8 ((i >> 1) & 1), column 8 (i >> 2) + 2 t + (i & 1).  (warp,
+    lane, i) -> (row, col)."""
+    i = np.arange(N // 2)
+    row = (16 * WARP4[:, None, None] + G_[None, :, None]
+           + 8 * ((i >> 1) & 1)[None, None])
+    col = 8 * (i >> 2)[None, None] + 2 * T_[None, :, None] + (i & 1)
+    return row, np.broadcast_to(col, row.shape)
+
+
+def wg_desc(addr, lbo):
+    """A shared-memory operand's descriptor: start >> 4 in bits 0-13, LBO
+    >> 4 in 16-29, SBO (128) >> 4 in 32-45, base offset 0, layout type 0
+    (no swizzle)."""
+    return (((addr & 0x3FFFF) >> 4) | ((lbo >> 4) << 16)
+            | ((WG_SBO >> 4) << 32))
+
+
+def wg_read(mem, desc, rows):
+    """What wgmma reads for a K-major operand (rows x 16: A's M rows, or
+    B's N columns) without a swizzle: element (row, k) at start + 16 (row
+    % 8) + SBO (row // 8) + 2 (k % 8) + LBO (k // 8), each core matrix 8
+    rows of 16 contiguous bytes.  mem: bf16 values by element; returns
+    ((rows, 16) values, byte addresses)."""
+    start = (desc & 0x3FFF) << 4
+    lbo, sbo = ((desc >> 16) & 0x3FFF) << 4, ((desc >> 32) & 0x3FFF) << 4
+    r, k = np.arange(rows)[:, None], np.arange(16)[None]
+    addr = (start + 16 * (r % 8) + sbo * (r // 8) + 2 * (k % 8)
+            + lbo * (k // 8))
+    return mem[addr // 2], addr
+
+
+def wg_split(v, kX):
+    """The split of 8-sample chunks into kX bf16 planes: x1 = bf16(v), x2 =
+    bf16(v - x1)."""
+    return split3(v)[:kX]
+
+
+def wg_window(x, hist, c, p, F, N_, hist_len):
+    """Slot (c, p)'s window as the split stores it: samples 8192 p - 256
+    .. of channel c, those in [lo, hi) from the raw stage (the halo from x,
+    or for p = 0 the last min(hist_len, 256) of the history), zeros
+    elsewhere (before the history, after a lone frame).  Returns (the
+    window's samples, lo, hi)."""
+    two = 2 * p + 1 < F
+    lo = 0 if p > 0 else WG_HALO - min(hist_len, WG_HALO)
+    hi = WG_HALO + (2 if two else 1) * NF
+    g = 2 * p * NF - WG_HALO + np.arange(WG_WIN)
+    xh = np.concatenate([hist[c][len(hist[c]) - hist_len:], x[c]])
+    s = xh[np.clip(g + hist_len, 0, len(xh) - 1)]
+    i = np.arange(WG_WIN)
+    return np.where((i >= lo) & (i < hi), s, 0.0), lo, hi
+
+
+def wg_store_window(samples, kX):
+    """The window's kX planes in shared memory (bf16 values by element):
+    chunk ci (row ci >> 3, column ci & 7) at (ci & 7) LBO + 16 (ci >> 3),
+    plane j at j XPLANE.  Checks that the 16-byte stores of each quarter
+    warp hit 8 distinct bank quads."""
+    mem = np.full(kX * WG_XPLANE // 2, np.nan)
+    ci = np.arange(WG_WIN // 8)
+    base = (ci & 7) * WG_LBO + 16 * (ci >> 3)
+    for q in range(0, len(ci), 8):
+        assert len(set(((base[q:q + 8] // 16) % 8).tolist())) == 8
+    planes = wg_split(samples, kX)
+    for j in range(kX):
+        for k in range(8):
+            mem[(j * WG_XPLANE + base) // 2 + k] = planes[j][8 * ci + k]
+    return mem
+
+
+def wg_fir_pair(mem, tiles, kX):
+    """fir_pair: every (e < E_MAX, s, plane) product, A from the tiles and
+    B from the window through their descriptors (tiles at shared byte 0,
+    the window at WG_WIN0), float64 sums (the blocks past E hold zero
+    taps).  Returns D (64 phases j, 128 rows q): output sample 64 q + j of
+    the pair."""
+    memb = np.concatenate([tiles, np.full(WG_WIN0 // 2 - len(tiles),
+                                          np.nan), mem])
+    a0 = wg_desc(0, WG_TILE_LBO)
+    b0 = wg_desc(WG_WIN0 + 16 * (WG_EMAX - 1), WG_LBO)
+    D = np.zeros((64, 128))
+    for e in range(WG_EMAX):
+        for s in range(4):
+            A, _ = wg_read(memb, a0 + (e * WG_TILE_BYTES
+                                       + 2 * s * WG_TILE_LBO) // 16, 64)
+            for j in range(kX):
+                off = j * WG_XPLANE + 2 * s * WG_LBO - 16 * e
+                B, _ = wg_read(memb, b0 + off // 16, 128)
+                assert not np.isnan(A).any() and not np.isnan(B).any()
+                D += A @ B.T
+    return D
+
+
+def wg_slot(n):
+    return n + 4 * (n >> 7)
+
+
+def wg_store_pair(D, two=True):
+    """store_pair: d[r] and d[r + 32] (r < 32; frames a and b of one
+    sample, b zeros for a lone frame) as one float2 at wg_slot(n), n = 64 q
+    + j.  Checks that each 8-byte store's half warps hit 16 distinct bank
+    pairs.  Returns the planes (PLANE,) complex: frame a real, b
+    imaginary."""
+    dr, dc = wg_d_map()                                 # (4, 32, 64)
+    d = D[dr, dc]
+    out = np.full(WG_PLANE, np.nan + 0j)
+    for w in range(4):
+        for r in range(32):
+            n = 64 * dc[w, :, r] + dr[w, :, r]
+            assert (dc[w, :, r + 32] == dc[w, :, r] + 64).all()
+            sl = wg_slot(n)
+            for half in (sl[:16], sl[16:]):
+                assert len(set((half % 16).tolist())) == 16
+            out[sl] = d[w, :, r] + 1j * (d[w, :, r + 32] if two else 0.0)
+    return out
+
+
+@pytest.mark.parametrize("K", [1, 31, 64, 65, 256, WG_KMAX])
+def test_wg_tap_tiles_are_toeplitz_blocks(K):
+    """Through its descriptor, step s of tile e reads T_e[:, 16 s: 16 s +
+    16], T_e[j][i] = h[64 e + j - i], exactly, each core matrix 128
+    contiguous bytes; blocks at e >= E are zero and E <= E_MAX up to the
+    limit; and the tiles' banded product is np.convolve."""
+    h = np.random.default_rng(K).standard_normal(K)
+    E = wg_blocks(K)
+    assert E <= WG_EMAX and wg_blocks(WG_KMAX + 1) == WG_EMAX + 1
+    tiles = wg_tap_tiles(h, K)
+    j, i = np.arange(64)[:, None], np.arange(64)[None]
+    T = []
+    for e in range(WG_EMAX + 1):
+        k = 64 * e + j - i
+        T.append(np.where((k >= 0) & (k < K), h[np.clip(k, 0, K - 1)], 0.0))
+        assert (e < E) == bool(T[-1].any())
+    for e in range(WG_EMAX):
+        for s in range(4):
+            d = wg_desc(e * WG_TILE_BYTES + 2 * s * WG_TILE_LBO, WG_TILE_LBO)
+            A, addr = wg_read(tiles, d, 64)
+            assert np.array_equal(A, T[e][:, 16 * s:16 * s + 16])
+            for r0 in range(0, 64, 8):
+                for k0 in (0, 8):
+                    cm = np.sort(addr[r0:r0 + 8, k0:k0 + 8].ravel())
+                    assert np.array_equal(cm - cm[0], np.arange(0, 128, 2))
+    x = np.random.default_rng(K + 1).standard_normal(64 * 8)
+    y = np.zeros(64 * 8)
+    for q in range(8):
+        for e in range(min(E, q + 1)):
+            y[64 * q:64 * q + 64] += T[e] @ x[64 * (q - e):64 * (q - e) + 64]
+    assert rel(y, np.convolve(x, h)[:len(x)]) < 1e-12
+
+
+@pytest.mark.parametrize("kX", [1, 2])
+@pytest.mark.parametrize("base", [0, 65536 + 16])
+def test_wg_descriptors_address_the_shifted_rows(base, kX):
+    """Every (e, s, plane) B descriptor reads B[k][n] = plane j's value of
+    window sample 64 (n + 4 - e) + 16 s + k for the pair's 128 output rows
+    n: the shift by e rows is the start address 16 e bytes back, which
+    stays inside the plane, and adding off / 16 to the descriptor changes
+    its start field alone (no carry into LBO).  Without a swizzle each core
+    matrix is 128 contiguous bytes (32 distinct banks) whatever the shift,
+    and the base-offset field stays 0; a 128-byte swizzle would move a
+    one-row shift inside its 1024-byte atom instead."""
+    rng = np.random.default_rng(base + kX)
+    samples = rng.integers(-32768, 32768, WG_WIN).astype(np.float64)
+    mem = wg_store_window(samples, kX)
+    planes = wg_split(samples, kX)
+    memb = np.concatenate([np.full(base // 2, np.nan), mem])
+    b0 = wg_desc(base + 16 * (WG_EMAX - 1), WG_LBO)
+    n, k = np.arange(128)[:, None], np.arange(16)[None]
+    for e in range(WG_EMAX):
+        for s in range(4):
+            for j in range(kX):
+                off = j * WG_XPLANE + 2 * s * WG_LBO - 16 * e
+                d = b0 + off // 16
+                assert d == wg_desc(base + 16 * (WG_EMAX - 1) + off, WG_LBO)
+                assert (d >> 49) & 7 == 0 and d >> 62 == 0
+                B, addr = wg_read(memb, d, 128)
+                assert addr.min() >= base + j * WG_XPLANE
+                assert addr.max() < base + (j + 1) * WG_XPLANE
+                idx = 64 * (n + WG_EMAX - 1 - e) + 16 * s + k
+                assert np.array_equal(B, planes[j][idx])
+                for r0 in range(0, 128, 8):
+                    for k0 in (0, 8):
+                        cm = np.sort(addr[r0:r0 + 8, k0:k0 + 8].ravel())
+                        assert np.array_equal(cm - cm[0],
+                                              np.arange(0, 128, 2))
+                        assert banks_distinct(cm[::2] // 4)
+
+
+@pytest.mark.parametrize("dtype", ["int16", "int8", "bfloat16", "float32"])
+def test_wg_split_is_exact(dtype):
+    """The split into x1 (and x2 at passes 2): every int16 value is x1 + x2
+    exactly; int8 and bfloat16 samples are x1 exactly (x2 == 0, so passes
+    1 is their whole FIR); float32 samples (split/2) keep x1 + x2 with an
+    error below 2^-16 of the value, the tier's stated arithmetic."""
+    if dtype == "int16":
+        v = np.arange(-32768, 32768, dtype=np.float64)
+    elif dtype == "int8":
+        v = np.arange(-128, 128, dtype=np.float64)
+    elif dtype == "bfloat16":
+        b = np.arange(0, 1 << 16, dtype=np.uint32) << 16
+        v = b.view(np.float32)
+        v = v[np.isfinite(v)].astype(np.float64)
+    else:
+        v = np.random.default_rng(3).standard_normal(100000).astype(
+            np.float32).astype(np.float64)
+    x1, x2 = wg_split(v, 2)
+    if dtype in ("int8", "bfloat16"):
+        assert np.array_equal(x1, v) and not x2.any()
+    elif dtype == "int16":
+        assert np.array_equal(x1 + x2, v)
+    else:
+        assert np.all(np.abs(x1 + x2 - v) <= np.abs(v) * 2.0 ** -16)
+
+
+def wg_walk(C, F, G, seed):
+    """The block walk and its hand-offs, run as the three roles would in a
+    random interleaving: per block, slots [T b / G, T (b + 1) / G) of T =
+    C ceil(F / 2); FIR warpgroup w takes slots i = w, w + 2, ... (its k-th:
+    k = i >> 1), splits each into window w, runs its products, waits
+    empty_pl[w] at parity (k - 1) & 1 from k = 1 and fills planes w, its
+    slot advanced two at a time without a division; the FFT role waits
+    full_pl[i & 1] at parity (i >> 1) & 1, transforms, flushes at a
+    channel's run end (a countdown of the slots left in the channel) and
+    releases.  An mbarrier is a count of completed phases; a parity wait
+    passes when the count's parity differs from the waited one, which is
+    right only while the count is the waited phase or one more: the model
+    asserts that at every wait.  Returns per block the (channel, pair, two
+    frames) of each slot the FFT consumed and the channels it flushed."""
+    rng = np.random.default_rng(seed)
+    P = (F + 1) // 2
+    T = C * P
+    out = []
+    for b in range(G):
+        t0, t1 = T * b // G, T * (b + 1) // G
+        n = t1 - t0
+        done = {(k, j): 0 for k in ("full", "empty") for j in (0, 1)}
+        planes = {}
+
+        def passes(key, phase):
+            assert phase <= done[key] <= phase + 1, (key, phase, done[key])
+            return done[key] & 1 != phase & 1
+
+        def advance(slot, k):                        # (c, p) + k slots
+            c, p = slot
+            p += k
+            while p >= P:
+                p -= P
+                c += 1
+            return c, p
+
+        nxt = [0, 1]                                 # each warpgroup's next i
+        slots = [divmod(t0 + w, P) for w in (0, 1)]
+        fft_i, consumed, flushed = 0, [], []
+        c_fft, left = t0 // P, P - t0 % P
+        while min(nxt) < n or fft_i < n:
+            can = []
+            for w in (0, 1):
+                i = nxt[w]
+                if i < n and (i < 2 or passes(("empty", w), (i >> 1) - 1)):
+                    can.append(w)
+            if fft_i < n and passes(("full", fft_i & 1), fft_i >> 1):
+                can.append(2)
+            assert can, "deadlock"
+            r = can[rng.integers(len(can))]
+            if r < 2:
+                w, i = r, nxt[r]
+                assert slots[w] == divmod(t0 + i, P)
+                assert planes.get(w) is None         # released
+                planes[w] = i
+                done[("full", w)] += 1
+                nxt[w] += 2
+                slots[w] = advance(slots[w], 2)
+            else:
+                i = fft_i
+                assert planes[i & 1] == i
+                t = t0 + i
+                c, p = divmod(t, P)
+                assert c == c_fft
+                consumed.append((c, p, 2 * p + 1 < F))
+                if i + 1 == n or left == 1:
+                    flushed.append(c)
+                planes[i & 1] = None
+                done[("empty", i & 1)] += 1
+                fft_i += 1
+                left -= 1
+                if left == 0:
+                    left, c_fft = P, c_fft + 1
+        out.append((consumed, flushed))
+    return out
+
+
+@pytest.mark.parametrize("C,F,G", [(1, 1, 1), (1, 3, 1), (2, 7, 3),
+                                   (3, 5, 2), (2, 8, 5), (1, 2, 4),
+                                   (5, 9, 7), (4, 64, 3)])
+def test_wg_rings_over_odd_runs_and_lone_frames(C, F, G):
+    """Windows, planes and their phases over blocks that walk odd
+    runs of slots (1, 2, 3 and more pairs, runs that cross channels), with
+    a lone last frame wherever F is odd, and more blocks than slots (the
+    empty ones return at once); in several random interleavings of the
+    roles, every parity wait unambiguous.  Every slot is consumed once, in
+    order, and every (block, channel) run flushed once at its end."""
+    P = (F + 1) // 2
+    for seed in range(6):
+        walk = wg_walk(C, F, G, seed)
+        seen = [s for consumed, _ in walk for s in consumed]
+        assert seen == [(c, p, 2 * p + 1 < F) for c in range(C)
+                        for p in range(P)]
+        for consumed, flushed in walk:
+            assert flushed == sorted(set(c for c, _, _ in consumed))
+        assert sum(not two for _, _, two in seen) == (C if F % 2 else 0)
+
+
+def wg_model(x, hist, hist_len, h, K, passes, G):
+    """The blocks of a launch through the model: each slot's window and
+    planes, the FIR from the tap tiles and descriptors into the pair's
+    float2 planes, the FFT's first loads (column u: slots of u + 256 i,
+    each warp's 8-byte loads on distinct bank pairs), S += |FFT(a + i
+    b)|^2, and at each channel's run end (S[k] + S[-k]) / 2 added into
+    the output."""
+    C, N_ = x.shape
+    F = N_ // NF
+    P = (F + 1) // 2
+    T = C * P
+    tiles = wg_tap_tiles(h, K)
+    out = np.zeros((C, NF))
+    u = np.arange(256)
+    for r in range(16):
+        for w0 in range(0, 256, 16):
+            assert len(set((wg_slot(u[w0:w0 + 16] + 256 * r) % 16)
+                           .tolist())) == 16
+    for b in range(G):
+        S = np.zeros(NF)
+        for t in range(T * b // G, T * (b + 1) // G):
+            c, p = divmod(t, P)
+            samples, _, _ = wg_window(x, hist, c, p, F, N_, hist_len)
+            mem = wg_store_window(samples, passes)
+            pl = wg_store_pair(wg_fir_pair(mem, tiles, passes),
+                               2 * p + 1 < F)
+            z = pl[wg_slot(np.arange(NF))]
+            assert not np.isnan(z.real).any()
+            S += np.abs(np.fft.fft(z)) ** 2
+            if t + 1 == T * (b + 1) // G or (t + 1) % P == 0:
+                out[c] += (S + np.roll(S[::-1], 1)) / 2
+                S = np.zeros(NF)
+    return out
+
+
+@pytest.mark.parametrize("frames,G,hist_len", [(1, 1, 256), (3, 2, 128),
+                                               (3, 1, 0), (4, 3, 384)])
+@pytest.mark.parametrize("K", [1, 31, 64, 65, 256, WG_KMAX])
+def test_wg_model_reproduces_convolution(K, frames, G, hist_len):
+    """Two channels of int16 samples through the model's blocks (one frame;
+    three, so a pair and a lone frame, cut between blocks or not; four
+    over three blocks) with a history of 0-384 samples (zero state before
+    it): passes 2 is the FIR of x with the bf16 taps, passes 1 that of x1
+    (int16 -> bf16), each to 1e-12 of np.convolve's periodogram (float64
+    sums)."""
+    rng = np.random.default_rng(K + 7 * frames + hist_len)
+    h1 = bf16(rng.standard_normal(K).astype(np.float32))
+    C = 2
+    x = rng.integers(-20000, 20001, (C, frames * NF)).astype(np.float64)
+    hist = rng.integers(-20000, 20001, (C, 384)).astype(np.float64)
+    for passes in (1, 2):
+        got = wg_model(x, hist, hist_len, h1, K, passes, G)
+        for c in range(C):
+            hc = hist[c][384 - hist_len:]
+            xs = x[c] if passes == 2 else split3(x[c])[0]
+            hs = hc if passes == 2 else split3(hc)[0]
+            want = pgram(conv_h(xs, hs, h1))
+            assert rel(got[c], want) < 1e-12, (passes, c)
+
+
+@pytest.mark.parametrize("passes,sample_bytes", [(1, 1), (1, 2), (2, 2),
+                                                 (2, 4)])
+def test_wg_route_and_shared_memory(passes, sample_bytes):
+    """The wrapper's mirror of the C side: passes 1-2 take the wgmma body
+    up to K_MAX_WG = 64 (E_MAX - 1) + 1 taps and chain_frames above it,
+    passes 0 and 3 never; the body's shared memory (two pairs' planes, tap
+    tiles, windows) is the model's and leaves the SM 60 KB of L1 (a 196 KB
+    carve-out) for the first pass's twiddles."""
+    from libtsd_tpu_torch.ops.kernels import _build, chain
+    assert chain.K_MAX_WG == WG_KMAX
+    assert chain.wg_route(passes, WG_KMAX)
+    assert not chain.wg_route(passes, WG_KMAX + 1)
+    assert not chain.wg_route(0, 1) and not chain.wg_route(3, 1)
+    want = (128 + 2 * WG_PLANE * 8 + WG_EMAX * WG_TILE_BYTES
+            + 2 * passes * WG_XPLANE)
+    assert chain.smem_bytes(passes, 256, sample_bytes) == want
+    assert want <= 196 * 1024 <= _build.SMEM_MAX

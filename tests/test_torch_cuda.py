@@ -145,6 +145,13 @@ def _tier_input(g, dev, precision, shape):
     return torch.randn(shape, generator=g, device=dev)
 
 
+def _wg_tier(precision, fir_passes):
+    """The tiers #3 runs on its wgmma body (csrc/chain_wg.cu) at K <=
+    chain.K_MAX_WG: one tap plane on the tensor cores (passes 1 and 2)."""
+    return precision in ("bf16", "int8") or (
+        precision in ("split", "int16") and fir_passes == 2)
+
+
 # (C, frames): the first runs whole pairs; 7 frames split into runs of 4
 # and 3 (the second block's last frame goes alone); one frame (N = 4096);
 # one channel of 3 frames (a pair and a lone frame in one block)
@@ -161,8 +168,11 @@ def test_chain_kernel(dev, precision, fir_passes, hist, C, frames):
     x = _tier_input(g, dev, precision, (C, frames * 4096))
     h0 = _tier_input(g, dev, precision, (C, 2, 128)) if hist else None
     before = chain.fir_periodogram4096.launches
+    wg = chain.fir_periodogram4096.wg_launches
     k = chain.fir_periodogram4096(x, G, h0, precision, fir_passes)
     assert chain.fir_periodogram4096.launches == before + 1
+    assert chain.fir_periodogram4096.wg_launches == wg + _wg_tier(
+        precision, fir_passes)
     p = chain.fir_periodogram4096_plain(x, G, h0, precision, fir_passes)
     assert rel(k, p) < TOL
     assert bin_err(k, p) < TOL_BIN
@@ -171,17 +181,22 @@ def test_chain_kernel(dev, precision, fir_passes, hist, C, frames):
 @pytest.mark.parametrize("hist", [False, True])
 @pytest.mark.parametrize("fir_passes", [2, 3])
 @pytest.mark.parametrize("precision", TIERS)
-@pytest.mark.parametrize("K", [1, 31, 256, 300])
+@pytest.mark.parametrize("K", [1, 31, 256, 300, 257, 258])
 def test_chain_kernel_tap_counts(dev, K, precision, fir_passes, hist):
     """Short and long filters on every tier (D = 1, 2, 3 and 4; E = 1, 3,
-    17 and 20 tap blocks of 16), with and without a history (D = 1: one
-    unread row)."""
+    17 and 20 tap blocks of 16; on the wgmma body E = 1, 2, 5 and 5 tap
+    blocks of 64, K = 257 its limit), with and without a history (D = 1:
+    one unread row).  K = 258, one above the wgmma body's limit, takes
+    chain_frames at every tier."""
     g = torch.Generator(device=dev).manual_seed(K)
     G = _G(np.random.default_rng(K).standard_normal(K), dev)
     H = max(G.shape[0] - 1, 1)
     x = _tier_input(g, dev, precision, (2, 8 * 4096))
     h0 = _tier_input(g, dev, precision, (2, H, 128)) if hist else None
+    wg = chain.fir_periodogram4096.wg_launches
     k = chain.fir_periodogram4096(x, G, h0, precision, fir_passes)
+    assert chain.fir_periodogram4096.wg_launches == wg + (
+        _wg_tier(precision, fir_passes) and K <= chain.K_MAX_WG)
     p = chain.fir_periodogram4096_plain(x, G, h0, precision, fir_passes)
     assert rel(k, p) < TOL
     assert bin_err(k, p) < TOL_BIN
