@@ -29,8 +29,11 @@
 // starts and no waiting block holds SMs a publisher needs.  On several
 // cards each device's stream carries its shards in time order, and a
 // shard's stream waits for its left neighbour's launch, so a wait lasts
-// about one kernel start.  A wait that has not seen its flag after 10 s
-// traps: a broken exchange fails the launch instead of hanging the card.
+// about one kernel start.  A wait that has not seen its flag after
+// wait_ns traps: a broken exchange fails the launch instead of hanging the
+// card (the wrapper passes 10 s where the neighbours start together, and
+// the row group's timeout where a late neighbour's host is waited for
+// inside this kernel).
 //
 // Why the slots alternate by epoch parity.  Flags carry the epoch, so a
 // flag left by an earlier call (or zero, from allocation) never satisfies
@@ -48,10 +51,15 @@
 // exports with cudaIpcGetMemHandle; the process on its left maps it with
 // cudaIpcOpenMemHandle and its last shard pushes there as above.  The
 // protocol and this kernel do not change: the flags are acquired and
-// released at system scope already.  The wrapper orders the calls of the
-// processes on the host (a row barrier each call; where the processes
-// share a card, each shard also starts after its left neighbour's kernel
-// has finished: see ops/kernels/chain_halo.py).
+// released at system scope already.  The calls of the processes are
+// ordered from the host, so that call e writes a slot only after its
+// reader of call e - 2 is done (see ops/kernels/chain_halo.py): on
+// distinct cards by the row's all-reduce of each call's spectra, which
+// completes after every rank's kernel of the call and before the next one
+// starts (the sharded chain), or else by a row barrier each call; where
+// the processes share a card, each shard also starts after its left
+// neighbour's kernel has finished.  Without the barrier a shard whose left
+// neighbour starts late spins on its flag inside this kernel.
 //
 // Bound on the H100: #3's (the tensor-core FIR of the bf16 tiers, the fp32
 // FMAs of "highest"; chain_body.cuh), plus P samples a channel read and
@@ -76,8 +84,6 @@ __device__ __forceinline__ unsigned long long global_ns() {
   return t;
 }
 
-constexpr unsigned long long WAIT_LIMIT_NS = 10ull * 1000 * 1000 * 1000;
-
 // recv/flag: this shard's slot (null on shard 0: history from hist0);
 // peer_recv/peer_flag: the right neighbour's slot (null on the last shard).
 template <typename T, int kPasses>
@@ -87,7 +93,7 @@ chain_halo_kernel(const T* __restrict__ x, const T* __restrict__ hist0,
                   unsigned* peer_flag, const float* __restrict__ taps,
                   const float2* __restrict__ tw, float* __restrict__ out,
                   long long N, int K, int P, int hist0_len, int hist0_stride,
-                  unsigned epoch, int frames_per_block) {
+                  long long wait_ns, unsigned epoch, int frames_per_block) {
   const int c = blockIdx.y;
   if (blockIdx.x == 0 && P > 0) {
     if (peer_recv != nullptr) {
@@ -106,7 +112,7 @@ chain_halo_kernel(const T* __restrict__ x, const T* __restrict__ hist0,
         const unsigned long long t0 = global_ns();
         while (ld_acquire_sys(f) != epoch) {
           __nanosleep(256);
-          if (global_ns() - t0 > WAIT_LIMIT_NS) __trap();
+          if (global_ns() - t0 > (unsigned long long)wait_ns) __trap();
         }
         __threadfence_system();
       }
@@ -126,7 +132,7 @@ static int launch(const void* x, const void* hist0, const void* recv,
                   const unsigned* flag, void* peer_recv, unsigned* peer_flag,
                   const float* taps, const float* tw, float* out, long long N,
                   int C, int K, int P, int hist0_len, int hist0_stride,
-                  unsigned epoch, cudaStream_t stream) {
+                  long long wait_ns, unsigned epoch, cudaStream_t stream) {
   const int smem =
       chain::smem_bytes(kPasses, K, (int)sizeof(T));
   cudaFuncSetAttribute(chain_halo_kernel<T, kPasses>,
@@ -138,23 +144,25 @@ static int launch(const void* x, const void* hist0, const void* recv,
       static_cast<const T*>(x), static_cast<const T*>(hist0),
       static_cast<const T*>(recv), flag, static_cast<T*>(peer_recv),
       peer_flag, taps, reinterpret_cast<const float2*>(tw), out, N, K, P,
-      hist0_len, hist0_stride, epoch, fpb);
+      hist0_len, hist0_stride, wait_ns, epoch, fpb);
   return (int)cudaGetLastError();
 }
 
 // dtype and passes: as fir_periodogram4096 (chain.cu), the same pairs.
 // P: samples pushed per channel, a multiple of 128 and at most N; 0 turns
 // the exchange off (D == 1).  tw: ops/kernels/fft.py twiddles(12).
+// wait_ns: how long a shard waits for its flag before it traps.
 // Returns cudaErrorInvalidValue for a pair that does not exist.
 extern "C" int fir_periodogram4096_halo(
     const void* x, const void* hist0, const void* recv, const unsigned* flag,
     void* peer_recv, unsigned* peer_flag, const float* taps, const float* tw,
     float* out, int dtype, int passes, long long N, int C, int K, int P,
-    int hist0_len, int hist0_stride, unsigned epoch, cudaStream_t stream) {
+    int hist0_len, int hist0_stride, long long wait_ns, unsigned epoch,
+    cudaStream_t stream) {
   if (C <= 0 || N < chain::NF) return 0;
 #define CHAIN_HALO_LAUNCH(T, Q)                                              \
   launch<T, Q>(x, hist0, recv, flag, peer_recv, peer_flag, taps, tw, out, N, \
-               C, K, P, hist0_len, hist0_stride, epoch, stream)
+               C, K, P, hist0_len, hist0_stride, wait_ns, epoch, stream)
   switch (dtype * 4 + passes) {
     case 0: return CHAIN_HALO_LAUNCH(float, 0);
     case 2: return CHAIN_HALO_LAUNCH(float, 2);

@@ -59,7 +59,7 @@ SIGNATURES = {
     "iir_cascade_f32": [P, P, P, P, P, P, P, P, I, I64, I, P, U32, P],
     "fm_chain_f32": [P, P, P, P, P, I, I64, I, I, F64, F32, F32, F32, F32, P],
     "fir_periodogram4096_halo": [P, P, P, P, P, P, P, P, P, I, I, I64, I, I,
-                                 I, I, I, U32, P],
+                                 I, I, I, I64, U32, P],
     "chain_halo_enable_peer": [I, I],
     "chain_halo_ipc_alloc": [I, I64, PP, P],
     "chain_halo_ipc_open": [I, P, PP],

@@ -27,20 +27,34 @@ Across processes (a mesh row over several processes on one host,
 ``HaloBuffers.link``), the receive slot of a process's first shard is a
 ``cudaMalloc`` segment exported by CUDA IPC and mapped into the process on
 its left, which pushes there; the handles go round once per row.  The
-host orders the processes each call:
+host orders the processes' calls, so that call e writes a slot only after
+its last reader, call e - 2, is done:
 
-* "nccl" transport (the row's ranks on distinct cards): a one-word
-  all-reduce over the row's group on the first shard's stream before the
-  launches.  A rank's kernels then start after every rank's kernels of
-  the previous call have finished, so call e overwrites a slot only after
-  its reader of call e - 2 (and e - 1) is done, and the neighbours start
-  together: a wait lasts about one kernel start;
+* "nccl" transport (the row's ranks on distinct cards), called by the
+  sharded chain (``parallel.chain``, ``_ordered_by_sum=True``): nothing
+  more is needed.  That caller all-reduces each call's partial spectra
+  over the row's group on the first shard's stream before its next call;
+  the sum completes only once every rank's kernels of the call have
+  finished, and a rank's next kernels queue behind it.  So every rank's
+  kernels of call e - 1 (and e - 2) are done before any rank's kernel of
+  call e starts.  The first call after :meth:`HaloBuffers.fit` is ordered
+  by ``fit``'s own ``all_gather_object`` of the slot handles (a slot is
+  zeroed before its handle leaves).  A rank whose left neighbour's host
+  is late waits inside #11: its first-frame blocks spin on the flag for
+  up to the row group's timeout (``RowLink.timeout``), as long as the
+  barrier would have waited, and then trap;
+* "nccl" transport, the wrapper called on its own: a one-word all-reduce
+  over the row's group on the first shard's stream before the launches
+  (the row barrier, span ``tsd.parallel.order``) gives the same order,
+  and the neighbours start together: a wait lasts about one kernel start,
+  and one that lasts 10 s traps, as within a process;
 * "gloo" transport (ranks that share a card, whose kernels time-slice
-  and never overlap): each rank waits for a token from the rank on its
-  left, which sends it once its kernels have finished, launches, waits
-  for its own kernels and sends the token on; a row barrier ends the call.
-  A shard then never spins on a flag while its left neighbour waits for
-  a time slice, and no slot is written before its last reader is done.
+  and never overlap), whoever calls: each rank waits for a token from the
+  rank on its left, which sends it once its kernels have finished,
+  launches, waits for its own kernels and sends the token on; a row
+  barrier ends the call.  A shard then never spins on a flag while its
+  left neighbour waits for a time slice, and no slot is written before
+  its last reader is done.
 
 ``tb``, ``pipe`` and ``interpret`` of the JAX function are TPU knobs and
 are not ported, as for #3.  Rows across cards (peer stores over NVLink)
@@ -64,6 +78,10 @@ from .periodogram import NFFT
 
 __all__ = ["HaloBuffers", "fir_periodogram4096_halo",
            "fir_periodogram4096_halo_plain"]
+
+# how long a shard waits for its flag before #11 traps, where its left
+# neighbour starts with it: a broken exchange, not a late neighbour
+_WAIT_NS = 10 * 10**9
 
 
 def _halo_len(G: torch.Tensor, N: int) -> int:
@@ -278,9 +296,10 @@ def _plain_across(xs: list, G: torch.Tensor, hist0, precision: str,
 
 
 def _order_before(bufs: HaloBuffers, devices: list, epoch: int) -> None:
-    """Across processes, what a rank waits for before its launches (see
-    the module's docstring): the "nccl" row barrier on the first shard's
-    stream, or the "gloo" token from the rank on the left."""
+    """Across processes, what a rank waits for before its launches when
+    its caller does not order the calls (see the module's docstring): the
+    "nccl" row barrier on the first shard's stream, or the "gloo" token
+    from the rank on the left."""
     link = bufs.link
     if link.transport == "nccl":
         with torch.cuda.device(devices[0]):
@@ -314,7 +333,8 @@ def fir_periodogram4096_halo(xs: Sequence[torch.Tensor], G: torch.Tensor,
                              hist0: torch.Tensor | None = None,
                              precision: str = "highest",
                              fir_passes: int = 3,
-                             bufs: HaloBuffers | None = None) -> list:
+                             bufs: HaloBuffers | None = None, *,
+                             _ordered_by_sum: bool = False) -> list:
     """xs: the time shards of one mesh row (this process's segment of it),
     in time order, each (C, N_local) on its device (N_local % 4096 == 0).
     G: (D, 128, 128) Toeplitz tap matrices.  Returns the per-shard partial
@@ -326,7 +346,11 @@ def fir_periodogram4096_halo(xs: Sequence[torch.Tensor], G: torch.Tensor,
     history from the rank on its left instead.  bufs: the row's
     :class:`HaloBuffers`, kept by the caller over calls (a fresh set when
     None; across processes the mesh's, which carry the row's link).
-    precision / fir_passes: as for ``chain.fir_periodogram4096``."""
+    precision / fir_passes: as for ``chain.fir_periodogram4096``.
+    _ordered_by_sum: for ``parallel.chain`` alone, which all-reduces each
+    call's outputs over the row's group before its next call; on the
+    "nccl" transport that sum orders the calls, and the row barrier is
+    left out (the module's docstring)."""
     xs = list(xs)
     if not xs:
         raise ValueError("no time shards")
@@ -355,9 +379,13 @@ def fir_periodogram4096_halo(xs: Sequence[torch.Tensor], G: torch.Tensor,
     # precede epochs 1 and 2)
     bufs.epoch += 1
     epoch, s = bufs.epoch & 0xFFFFFFFF, bufs.epoch & 1
-    if link is not None:
+    by_sum = (link is not None and _ordered_by_sum
+              and link.transport == "nccl")
+    if link is not None and not by_sum:
         with span("tsd.parallel.order"):
             _order_before(bufs, devices, epoch)
+    wait_ns = (int(link.timeout.total_seconds() * 1e9) if by_sum
+               else _WAIT_NS)
     to_right = link is not None and link.right is not None
     null = ctypes.c_void_p(None)
     outs, started = [], None
@@ -397,7 +425,8 @@ def fir_periodogram4096_halo(xs: Sequence[torch.Tensor], G: torch.Tensor,
                 _build.ptr(tp), _build.ptr(tw), _build.ptr(out),
                 _DTYPE_CODE[x.dtype], passes, N, C, K, P,
                 (D - 1) * _L if (t == 0 and h0 is not None) else 0,
-                max(D - 1, 1) * _L, epoch, _build.stream_ptr(dev))
+                max(D - 1, 1) * _L, wait_ns, epoch,
+                _build.stream_ptr(dev))
             _build.check(err, "fir_periodogram4096_halo")
             fir_periodogram4096_halo.launches += 1
             if multi:

@@ -23,6 +23,19 @@ tail into the right neighbour's receive slot from inside the kernel
 (``ops.kernels.chain_halo``; its slots are allocated once per mesh row and
 kept in ``mesh.halo_buffers``; across processes they are mapped by CUDA
 IPC, so the fused form needs every rank of a row on one host).
+
+Across processes the fused form's calls are ordered by the row's sum: a
+rank all-reduces a call's partials over the row's group on the first
+shard's stream before it makes the next call, and its next #11 queues
+behind that sum, which completes only once every rank's #11 of the call
+has finished.  So #11 is told so (``_ordered_by_sum``) and, on the NCCL
+transport, runs without a row barrier of its own: one collective a call,
+the sum.  The first call after the slots are made is ordered by the
+exchange of their handles.  A rank whose left neighbour's host is late
+then waits inside #11, on its flag, for up to the row group's timeout
+(``RowLink.timeout``, as long as the barrier or the sum would wait); then
+#11 traps and the rank's CUDA context is lost, as a collective that times
+out ends the process.
 """
 from __future__ import annotations
 
@@ -74,7 +87,8 @@ def sharded_fir_periodogram4096(mesh: Mesh, x, G: torch.Tensor,
                     f"halo='ppermute'")
             parts = fir_periodogram4096_halo(
                 row, G, precision=precision, fir_passes=fir_passes,
-                bufs=mesh.halo_buffers.setdefault(i, HaloBuffers(link)))
+                bufs=mesh.halo_buffers.setdefault(i, HaloBuffers(link)),
+                _ordered_by_sum=True)
         else:
             # the left neighbour's input tail = this shard's FIR state
             tails = halo_exchange_left(row, H * _L, link)
@@ -87,7 +101,8 @@ def sharded_fir_periodogram4096(mesh: Mesh, x, G: torch.Tensor,
                     parts.append(fir_periodogram4096(
                         xs, G.to(xs.device), hist0, precision, fir_passes))
         # psum over "time": the segment's partials summed on its first
-        # device, then over the row's group
+        # device, then over the row's group (for the fused form, also what
+        # orders #11's next call across the row's ranks)
         acc = parts[0]
         for p in parts[1:]:
             acc = acc + p.to(acc.device)

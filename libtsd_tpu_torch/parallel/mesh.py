@@ -37,6 +37,7 @@ either form and return the form they were given.
 from __future__ import annotations
 
 import contextlib
+import datetime
 import socket
 from dataclasses import dataclass
 from typing import Optional, Sequence
@@ -47,6 +48,10 @@ import torch.distributed as dist
 from ..config import device as _device
 
 __all__ = ["Mesh", "RowLink", "make_mesh", "shard", "gather"]
+
+# how long a row's collectives wait for its ranks before they give up
+# (NCCL's default, stated so that kernel #11's wait can follow it)
+ROW_TIMEOUT = datetime.timedelta(minutes=10)
 
 # the cards given to ``launch.initialize`` (local_device_ids): what
 # ``make_mesh(devices=None)`` means in that process
@@ -82,7 +87,8 @@ class RowLink:
     device, where this process's traffic of the row goes (one NCCL
     communicator a row); ``one_host``: every rank of the row runs on this
     host (kernel #11's receive slots are mapped between processes by CUDA
-    IPC, which needs it)."""
+    IPC, which needs it); ``timeout``: how long the row's collectives wait
+    for its ranks (its group's)."""
     row: int
     group: object
     ranks: tuple
@@ -93,6 +99,7 @@ class RowLink:
     transport: str
     device: torch.device
     one_host: bool
+    timeout: datetime.timedelta = ROW_TIMEOUT
 
 
 class Mesh:
@@ -171,7 +178,8 @@ def _row_links(chan: int, time: int, n_local: int, rank: int, info: list,
             owners.setdefault(c, set()).add(g // n_local)
         shared = any(len(o) > 1 for o in owners.values())
         transport = "nccl" if on_cuda and not shared else "gloo"
-        group = dist.new_group(list(ranks), backend=transport)
+        group = dist.new_group(list(ranks), backend=transport,
+                               timeout=ROW_TIMEOUT)
         one_host = len({info[k]["host"] for k in ranks}) == 1
         if rank == ranks[0]:
             why = ("the row's ranks own distinct cards" if transport == "nccl"

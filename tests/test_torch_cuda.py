@@ -1120,8 +1120,10 @@ def test_sharded_chain_across_cards(dev):
     """The multi-card paths: #11's peer stores, peer access, the streams'
     event waits and the ppermute form's peer copies, on meshes over every
     visible card (a row across all cards; two rows; two shards a card),
-    three calls in a row on the same slots, against the unsharded #3 on
-    one card (1e-5 of the peak, 1e-3 per bin)."""
+    eight calls in a row on the same slots (each parity slot reused four
+    times), new data each call, all queued before the host waits for any,
+    then each against the unsharded #3 on one card (1e-5 of the peak,
+    1e-3 per bin)."""
     from libtsd_tpu_torch.ops.kernels import chain_halo
     from libtsd_tpu_torch.parallel import (make_mesh, shard,
                                            sharded_fir_periodogram4096)
@@ -1136,21 +1138,23 @@ def test_sharded_chain_across_cards(dev):
     G = _G(fir_lowpass(256, 0.2), dev)
     for chan, time, devs in layouts:
         mesh = make_mesh(chan=chan, time=time, devices=devs)
-        x = torch.randint(-2048, 2048, (2 * chan, time * 8 * 4096),
-                          generator=g, device=dev, dtype=torch.int16)
-        one = chain.fir_periodogram4096(x, G, precision="int16",
-                                        fir_passes=2)
-        xs = shard(mesh, x)
+        x = [torch.randint(-2048, 2048, (2 * chan, time * 8 * 4096),
+                           generator=g, device=dev, dtype=torch.int16)
+             for _ in range(8)]
+        xs = [shard(mesh, xc) for xc in x]
         for halo in ("fused", "ppermute"):
-            outs = [sharded_fir_periodogram4096(mesh, xs, G,
+            # no host sync between the calls: a call may queue on the
+            # cards while the one before it still runs
+            outs = [sharded_fir_periodogram4096(mesh, xc, G,
                                                 precision="int16", halo=halo,
+                                                fir_passes=2) for xc in xs]
+            for call, (s, xc) in enumerate(zip(outs, x)):
+                one = chain.fir_periodogram4096(xc, G, precision="int16",
                                                 fir_passes=2)
-                    for _ in range(3)]
-            for s in outs:
                 assert s.device == cards[0]
-                assert rel(s, one) < 1e-5, (chan, time, halo)
+                assert rel(s, one) < 1e-5, (chan, time, halo, call)
                 assert bin_err(s, one) < TOL_BIN
-        row = xs[0]
+        row = xs[-1][0]
         k = chain_halo.fir_periodogram4096_halo(row, G, None, "int16", 2)
         p = chain_halo.fir_periodogram4096_halo_plain(row, G, None, "int16",
                                                       2)
@@ -1225,17 +1229,24 @@ for call in range(20):
         p = ps[k0 + j].to(k.device)
         assert bool(torch.isfinite(k).all()), call
         assert rel(k, p) < 1e-4 and bin_err(k, p) < 1e-3, (call, rel(k, p))
-# both forms of the sharded chain on the same row, against #3 on one card
-x = torch.randint(-2048, 2048, (2, T * 8 * 4096), generator=g, device=dev,
-                  dtype=torch.int16)
-one = chain.fir_periodogram4096(x, G, precision="int16", fir_passes=2)
-xs = launch.ingest_local(mesh, x[:, launch.host_slice(mesh, "time",
-                                                      x.shape[1])])
+# both forms of the sharded chain on the same row, 8 calls in a row on new
+# data each call, queued with no host sync between them (the fused form's
+# slots reused 4 times each, ordered by the row's sum alone on NCCL), then
+# each against #3 on one card
+x = [torch.randint(-2048, 2048, (2, T * 8 * 4096), generator=g, device=dev,
+                   dtype=torch.int16) for _ in range(8)]
+xs = [launch.ingest_local(mesh, xc[:, launch.host_slice(mesh, "time",
+                                                        xc.shape[1])])
+      for xc in x]
 for halo in ("fused", "ppermute"):
-    s = sharded_fir_periodogram4096(mesh, xs, G, precision="int16",
-                                    halo=halo, fir_passes=2)
-    s = s.to(dev)
-    assert rel(s, one) < 1e-5 and bin_err(s, one) < 1e-3, halo
+    outs = [sharded_fir_periodogram4096(mesh, xc, G, precision="int16",
+                                        halo=halo, fir_passes=2)
+            for xc in xs]
+    for call, (s, xc) in enumerate(zip(outs, x)):
+        one = chain.fir_periodogram4096(xc, G, precision="int16",
+                                        fir_passes=2)
+        s = s.to(dev)
+        assert rel(s, one) < 1e-5 and bin_err(s, one) < 1e-3, (halo, call)
 print(f"rank {pid} OK", flush=True)
 dist.destroy_process_group()
 """
@@ -1256,15 +1267,17 @@ def test_chain_halo_across_processes_shared_card(dev):
     rank started after its left neighbour's kernel): 20 calls on the same
     slots, poisoned every fifth call, int16/2 then "highest" (slots made
     anew), each rank's spectrum against #11's plain version of the row
-    (TOL of the peak, TOL_BIN a bin); then both forms of the sharded chain
-    against #3 (1e-5 of the peak)."""
+    (TOL of the peak, TOL_BIN a bin); then both forms of the sharded chain,
+    8 calls on new data queued before any check, against #3 (1e-5 of the
+    peak)."""
     _ipc_row(2, "shared")
 
 
 def test_chain_halo_across_processes_one_card_each(dev):
     """As above over 2-4 processes on a card each (the NCCL transport: a
-    row barrier on the stream each call, the neighbours' kernels side by
-    side)."""
+    row barrier on the stream each direct call, the neighbours' kernels
+    side by side; the sharded chain's calls ordered by its row sum
+    alone)."""
     n = min(torch.cuda.device_count(), 4)
     if n < 2:
         pytest.skip("needs two or more cards (a process a card)")

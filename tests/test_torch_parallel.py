@@ -17,7 +17,9 @@ tests/test_parallel.py, with its tolerance:
 * the sharded FM receiver: 2e-3 against JAX (:315), and 1e-4 after 16
   outputs against the unsharded receiver on the longer case (:366);
 * kernel #11's plain version: each shard's partial spectrum equals #3's
-  plain version given its left neighbour's tail (the same arithmetic).
+  plain version given its left neighbour's tail (the same arithmetic);
+* #11 across processes, its card and the other ranks faked: the order of
+  its launches and collectives, on the sharded path and called directly.
 
 The last test runs the launch path in two gloo processes on localhost.
 """
@@ -53,6 +55,7 @@ from libtsd_tpu_torch.parallel import (gather, halo_exchange_left, launch,
                                        sharded_fir,
                                        sharded_fir_periodogram4096,
                                        sharded_fm_receiver)
+from libtsd_tpu_torch.parallel.mesh import ROW_TIMEOUT, Mesh, RowLink
 from torch_compare import THREAD_ENV  # (importing it caps the threads)
 
 CPU8 = ["cpu"] * 8
@@ -379,6 +382,176 @@ def test_halo_rejects_a_row_mixing_cpu_and_card(monkeypatch, card):
     m = make_mesh(chan=1, time=2, devices=CPU8)
     with pytest.raises(ValueError, match="mixes CPU and CUDA"):
         sharded_fir_periodogram4096(m, [row], G, halo="fused")
+
+
+# #11 across processes, seen from one rank: where the rank sits in a row of
+# four (its left and right ranks) and the transport; the card and the other
+# ranks are faked (``card``)
+POSITIONS = {"first": (None, 1), "middle": (0, 2), "last": (2, None)}
+
+
+class _FakeCard:
+    """What #11's wrapper does to the card and the other ranks, in order:
+    ``log`` of launches (with the call's epoch), collectives and
+    point-to-point calls; ``waits``: each launch's limit on a shard's wait
+    for its flag, in ns.  ``bufs``: the HaloBuffers whose epoch the left
+    rank's token carries."""
+
+    def __init__(self):
+        self.log, self.waits, self.bufs = [], [], None
+
+    def fir_periodogram4096_halo(self, *args):
+        self.log.append(("launch", int(args[-2])))
+        self.waits.append(int(args[-3]))
+        return 0
+
+    def calls(self, n: int) -> list:
+        """The log cut into n calls of equal length."""
+        k = len(self.log) // n
+        assert len(self.log) == k * n, self.log
+        return [self.log[i * k:(i + 1) * k] for i in range(n)]
+
+
+@pytest.fixture
+def card(monkeypatch):
+    """#11's wrapper on its kernel route with the card and the other ranks
+    faked (:class:`_FakeCard`); the shards stay CPU tensors and the slots
+    are CPU tensors made at the first call."""
+    import contextlib
+    import types
+    from libtsd_tpu_torch.ops.kernels import _build
+    import torch.distributed as dist
+    fake = _FakeCard()
+    log = fake.log
+
+    def fit(bufs, devices, C, P, dtype):
+        if bufs.key is None:
+            bufs.key = (tuple(devices), C, P, dtype)
+            bufs.recv = [torch.zeros((2, C, P), dtype=dtype)]
+            bufs.flags = [torch.zeros((2, C), dtype=torch.int32)]
+            bufs.peer = (devices[-1], 1 << 20)
+            bufs.tick = torch.zeros(1, dtype=torch.int32)
+
+    def recv(t, src, group=None):
+        t.fill_(fake.bufs.epoch)
+        log.append(("recv", src))
+
+    monkeypatch.setattr(_build, "use_plain", lambda t: False)
+    monkeypatch.setattr(_build, "require_cuda", lambda *t: None)
+    monkeypatch.setattr(_build, "lib", lambda: fake)
+    monkeypatch.setattr(KH.HaloBuffers, "fit", fit)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d=None: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda d=None: log.append(("sync",)))
+    monkeypatch.setattr(dist, "all_reduce", lambda t, group=None: log.append(
+        ("all_reduce", group, tuple(t.shape), t.dtype)))
+    monkeypatch.setattr(dist, "recv", recv)
+    monkeypatch.setattr(dist, "send", lambda t, dst, group=None: log.append(
+        ("send", dst)))
+    monkeypatch.setattr(dist, "barrier", lambda group=None: log.append(
+        ("barrier", group)))
+    return fake
+
+
+def _row_mesh(position: str, transport: str) -> Mesh:
+    """This rank's one-shard segment of a row of four across processes."""
+    left, right = POSITIONS[position]
+    t0 = 0 if left is None else left + 1
+    link = RowLink(0, "row group", (0, 1, 2, 3), left, right, t0, 4,
+                   transport, torch.device("cpu"), True)
+    return Mesh([[torch.device("cpu")]], 1, 4, rows=[0], tstart=[t0],
+                links=[link])
+
+
+def _row_input(calls: int):
+    G = t32(FR.fir_toeplitz_mats(FD.fir_lowpass(256, 0.2)))
+    g = torch.Generator().manual_seed(5)
+    xs = [torch.randint(-2048, 2048, (2, 4096), generator=g,
+                        dtype=torch.int16) for _ in range(calls)]
+    return G, xs
+
+
+def _ordered_call(transport: str, position: str, e: int) -> list:
+    """What #11's wrapper does for call e when it orders the call itself:
+    the NCCL row barrier (a one-word all-reduce over the row's group), or
+    gloo's token from the left, a wait for the card, the token to the
+    right and a row barrier, around the launch."""
+    left, right = POSITIONS[position]
+    if transport == "nccl":
+        return [("all_reduce", "row group", (1,), torch.int32),
+                ("launch", e)]
+    return ([("recv", left)] if left is not None else []) + [
+        ("launch", e), ("sync",)] + (
+        [("send", right)] if right is not None else []) + [
+        ("barrier", "row group")]
+
+
+ROW_SUM = ("all_reduce", "row group", (2, 4096), torch.float32)
+
+
+@pytest.mark.parametrize("position", list(POSITIONS))
+def test_sharded_fused_row_sum_follows_every_launch(card, position):
+    """The fact that lets the sharded chain drop #11's row barrier on the
+    NCCL transport: on every rank of a row, each call's launch is followed
+    by the all-reduce of the row's sum over the row's group, and by no
+    other collective, before the next call's launch.  The sum then
+    completes only after every rank's kernel of the call, and each rank's
+    next kernel queues behind it."""
+    m = _row_mesh(position, "nccl")
+    G, xs = _row_input(8)
+    for x in xs:
+        sharded_fir_periodogram4096(m, [[x]], G, precision="int16",
+                                    halo="fused", fir_passes=2)
+    for e, events in enumerate(card.calls(8), start=1):
+        assert events == [("launch", e), ROW_SUM], events
+
+
+@pytest.mark.parametrize("position", list(POSITIONS))
+@pytest.mark.parametrize("transport", ["nccl", "gloo"])
+def test_halo_called_directly_orders_its_calls(card, transport,
+                                               position):
+    """#11's wrapper called on its own across processes orders every call
+    itself (:func:`_ordered_call`); the sharded chain keeps gloo's token
+    too, before its row sum."""
+    m = _row_mesh(position, transport)
+    bufs = card.bufs = m.halo_buffers[0] = KH.HaloBuffers(m.links[0])
+    G, xs = _row_input(4)
+    for x in xs:
+        KH.fir_periodogram4096_halo([x], G, None, "int16", 2, bufs=bufs)
+    for e, events in enumerate(card.calls(4), start=1):
+        assert events == _ordered_call(transport, position, e), events
+    if transport == "gloo":
+        card.log.clear()
+        sharded_fir_periodogram4096(m, [[xs[0]]], G, precision="int16",
+                                    halo="fused", fir_passes=2)
+        assert card.log == _ordered_call("gloo", position, 5) + [ROW_SUM]
+
+
+@pytest.mark.parametrize("how", ["sharded", "direct"])
+@pytest.mark.parametrize("transport", ["nccl", "gloo"])
+def test_halo_wait_limit_follows_who_orders(card, transport, how):
+    """How long #11 lets a shard wait for its flag before it traps: the
+    row group's timeout where the sharded chain's row sum alone orders the
+    calls (a late neighbour's host is then waited for inside #11, as long
+    as the barrier would have waited), 10 s where the wrapper orders them
+    and the neighbours start together."""
+    m = _row_mesh("middle", transport)
+    link = m.links[0]
+    assert link.timeout == ROW_TIMEOUT
+    bufs = card.bufs = m.halo_buffers[0] = KH.HaloBuffers(link)
+    G, xs = _row_input(3)
+    for x in xs:
+        if how == "sharded":
+            sharded_fir_periodogram4096(m, [[x]], G, precision="int16",
+                                        halo="fused", fir_passes=2)
+        else:
+            KH.fir_periodogram4096_halo([x], G, None, "int16", 2, bufs=bufs)
+    limit_s = (ROW_TIMEOUT.total_seconds()
+               if (how, transport) == ("sharded", "nccl") else 10)
+    assert card.waits == [int(limit_s * 10**9)] * 3
 
 
 # ------------------------------------------------- sharded FM receiver

@@ -118,12 +118,16 @@ def main() -> None:
     nproc = int(argv[argv.index("--nproc") + 1])
     pid = int(argv[argv.index("--pid") + 1])
     import torch_compare  # noqa: F401  (caps the threads)
+    import torch.distributed as dist
     from libtsd_tpu_torch.parallel import launch
     launch.initialize(coord, nproc, pid)
     x = inputs()
     for name in LAYOUTS:
         np.savez(os.path.join(outdir, f"{name}_{pid}.npz"),
                  **run_layout(name, x))
+    # leave the group before exit: a gloo group still open while the
+    # interpreter shuts down can abort the process
+    dist.destroy_process_group()
     print(f"worker {pid}: {len(LAYOUTS)} layouts", flush=True)
 
 
