@@ -30,10 +30,10 @@ C entry called as its own signature says, then at K = 256 through each
 tree's wrapper (both held to this tree's plain version, 1e-4 of the
 peak, and this tree to a float64 FIR, 1e-5), and the SASS of #3, #10
 and #11 (their sources compiled alone, ``cuobjdump -sass``) compared
-line for line.  --only takes a comma list of the groups "sb" (#5, #6),
-"iir" (#7), "fm" (#8), "chain" (#3, #11), "fft" (#2, #4), "frame" (#9,
-#10) and "fir" (#1); all by default.  Each pair is
-timed other, this, this, other with ``chip_smoke.time_ms``; #2-#4 and #11
+kernel by kernel, line for line.  --only takes a comma list of the
+groups "sb" (#5, #6), "iir" (#7), "fm" (#8), "chain" (#3, #11), "fft"
+(#2, #4), "frame" (#9, #10) and "fir" (#1); all by default.  Each pair
+is timed other, this, this, other with ``chip_smoke.time_ms``; #2-#4 and #11
 are held to this tree's plain version (1e-4 of the peak; the spectra also
 1e-3 per bin).  --stages also builds this tree's kernels with
 -DCHAIN_FIR_ONLY (the fused chain without its FFT stage, into
@@ -86,6 +86,9 @@ def chain_callers(ob, olib, dev):
     time order, as ``chain_halo`` does on one card."""
     from libtsd_tpu_torch.ops.kernels import _build, chain, fft
     first = len(ob.SIGNATURES["fir_periodogram4096"]) == 12
+    # #11's flag wait limit (wait_ns, 10 s), where the tree's entry has it
+    wait = ((10 * 10**9,) if len(ob.SIGNATURES["fir_periodogram4096_halo"])
+            == 20 else ())
     stream = _build.stream_ptr(dev)
     tw = _build.ptr(fft.twiddles(12, dev))
     null = ctypes.c_void_p(None)
@@ -141,7 +144,7 @@ def chain_callers(ob, olib, dev):
                      epoch, ob.frames_per_block(C, N // NFFT, dev))
                     if first else
                     (tw, _build.ptr(out), code, p, N, C, K, P, 0,
-                     max(P, 128), epoch))
+                     max(P, 128), *wait, epoch))
             _build.check(olib.fir_periodogram4096_halo(*head, *tail, stream),
                          "other #11")
             outs.append(out)
@@ -616,14 +619,28 @@ def ab_fir(ob, olib, other: str, inp: dict, dev: torch.device) -> dict:
     return res
 
 
-SASS_SOURCES = ("chain.cu", "chain_halo.cu", "detfront.cu")
+SASS_SOURCES = ("chain.cu", "chain_wg.cu", "chain_halo.cu", "detfront.cu")
+
+
+def _sass_functions(lines: list) -> dict:
+    """{mangled kernel name: its SASS lines} of ``cuobjdump -sass``."""
+    funcs, cur = {}, None
+    for ln in lines:
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            cur = funcs.setdefault(m.group(1), [])
+        elif cur is not None:
+            cur.append(ln)
+    return funcs
 
 
 def sass_same(other: str) -> bool:
     """#3's, #11's and #10's SASS (``cuobjdump -sass`` of each source
     compiled alone with this tree's flags) in the other tree and in this
-    one: equal line for line (they include chain_body.cuh, whose helpers
-    #1 uses)."""
+    one, kernel by kernel: True when every kernel both trees have is equal
+    line for line (they include chain_body.cuh, whose helpers #1 uses);
+    kernels only one tree has are listed."""
+    import difflib
     import subprocess
     import tempfile
     from libtsd_tpu_torch.ops.kernels import _build
@@ -634,27 +651,49 @@ def sass_same(other: str) -> bool:
     same = True
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as tmp:
         for src in SASS_SOURCES:
-            text = []
+            funcs = []
             for k, root in enumerate((other, os.path.dirname(
                     os.path.abspath(__file__)))):
+                path = os.path.join(root, "libtsd_tpu_torch", "csrc", src)
+                if not os.path.exists(path):
+                    funcs.append({})
+                    continue
                 cub = os.path.join(tmp, f"{k}_{src}.cubin")
-                subprocess.run([nvcc, *flags, "-cubin", "-o", cub,
-                                os.path.join(root, "libtsd_tpu_torch", "csrc",
-                                             src)], check=True)
+                subprocess.run([nvcc, *flags, "-cubin", "-o", cub, path],
+                               check=True)
                 out = subprocess.run([tool, "-sass", cub], check=True,
                                      capture_output=True, text=True).stdout
                 # anonymous namespaces are named from the file's path
-                text.append([re.sub(r"_GLOBAL__N__[0-9a-f]+_", "_GLOBAL__N_",
-                                    ln) for ln in out.splitlines()
-                             if "code for" not in ln and ".cubin" not in ln])
-            pairs = [(a, b) for a, b in zip(*text) if a != b]
-            diff = len(pairs) + abs(len(text[0]) - len(text[1]))
-            n = sum("/*" in ln for ln in text[1])
-            print(f"check ab sass {src} [{other}]: {n} instructions, "
-                  f"{diff} lines differ {'ok' if diff == 0 else 'DIFFERS'}")
-            for a, b in pairs[:4]:
-                print(f"  other: {a.strip()}\n  this:  {b.strip()}")
-            same = same and diff == 0
+                funcs.append(_sass_functions(
+                    [re.sub(r"_GLOBAL__N__[0-9a-f]+_", "_GLOBAL__N_", ln)
+                     for ln in out.splitlines()
+                     if "code for" not in ln and ".cubin" not in ln]))
+            for name in sorted(set(funcs[0]) | set(funcs[1])):
+                if name not in funcs[0] or name not in funcs[1]:
+                    where = "this" if name in funcs[1] else "the other"
+                    print(f"check ab sass {src} {name} [{other}]: only in "
+                          f"{where} tree")
+                    continue
+                # instructions without their addresses (and the padding
+                # their width sets) and with the cubin's label numbers
+                # blanked, so that one inserted instruction or kernel does
+                # not shift every line after it
+                a, b = ([" ".join(re.sub(r"\.L_x_\d+", ".L_x", re.sub(
+                    r"/\*[0-9a-f]{4,}\*/", "", ln)).split())
+                         for ln in f[name]] for f in funcs)
+                ops = difflib.SequenceMatcher(None, a, b,
+                                              autojunk=False).get_opcodes()
+                changed = [(a[i1:i2], b[j1:j2]) for tag, i1, i2, j1, j2
+                           in ops if tag != "equal"]
+                diff = sum(max(len(u), len(v)) for u, v in changed)
+                n = sum("/*" in ln for ln in b)
+                print(f"check ab sass {src} {name} [{other}]: {n} "
+                      f"lines, {diff} differ "
+                      f"{'ok' if diff == 0 else 'DIFFERS'}")
+                for u, v in changed[:3]:
+                    print(f"  other: {' | '.join(u[:3])}\n"
+                          f"  this:  {' | '.join(v[:3])}")
+                same = same and diff == 0
     return same
 
 

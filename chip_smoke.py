@@ -3668,12 +3668,15 @@ def main() -> int:
     t_phase = time.perf_counter()
     ps = parallel_setup(h, gen, dev)
     kernels.reset_launches()
+    wg0 = kernels.chain_halo.fir_periodogram4096_halo.wg_launches
     pp = parallel_path(ps)
     counts = kernels.launches()
     launches.update({k: counts[k] for k in PATH_KERNELS["parallel"]})
     shards = MESH_CHAN * MESH_TIME
     print("launches (parallel path): " + json.dumps(
-        {k: counts[k] for k in PATH_KERNELS["parallel"] + PARALLEL_ALSO}))
+        {k: counts[k] for k in PATH_KERNELS["parallel"] + PARALLEL_ALSO})
+        + ", #11 on the wgmma body (wg_launches): "
+        f"{kernels.chain_halo.fir_periodogram4096_halo.wg_launches - wg0}")
     if counts["fir_periodogram4096_halo"] != shards or any(
             counts[k] == 0 for k in PARALLEL_ALSO):
         raise AssertionError(f"parallel path launches {counts}: want "

@@ -2,13 +2,13 @@
 // channel, in one pass; the FIR output lives only in shared memory.
 // Replaces ops/pallas/chain.py::fir_periodogram4096, single-device branch
 // (the JAX package's _kernel with halo_axis=None).  What bounds it and the
-// design are those of chain::chain_frames (chain_body.cuh), which kernel
-// #11 (chain_halo.cu) shares: the FIR of the bf16 tiers on the tensor
-// cores, the fp32 one on the FMA pipes, the FFT on fft_reg.cuh with two
-// real frames per complex transform.  The tensor-core tiers with one tap
-// plane (passes 1-2) and K <= chain_wg::K_MAX take chain_wg.cu's body (the
-// FIR on wgmma, overlapped with the FFT of the pairs before); passes 0 and
-// 3, and larger K, take chain_frames.
+// design are those of chain::chain_frames (chain_body.cuh): the FIR of the
+// bf16 tiers on the tensor cores, the fp32 one on the FMA pipes, the FFT on
+// fft_reg.cuh with two real frames per complex transform.  The tensor-core
+// tiers with one tap plane (passes 1-2) and K <= chain_wg::K_MAX take
+// chain_wg.cu's body (the FIR on wgmma, overlapped with the FFT of the
+// pairs before); passes 0 and 3, and larger K, take chain_frames.  Kernel
+// #11 (chain_halo.cu) takes the same two bodies by the same route.
 #include "chain_body.cuh"
 
 int chain_wg_launch(const void* x, const void* hist, const float* taps,

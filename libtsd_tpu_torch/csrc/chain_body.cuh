@@ -237,6 +237,64 @@ __device__ __forceinline__ void chunk8(const T* row, const T* hrow,
   unpack(r, v, T());
 }
 
+// ------------------------------------------- kernel #11's halo exchange
+// (the protocol: the comment at the top of chain_halo.cu)
+
+__device__ __forceinline__ unsigned ld_acquire_sys(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.sys.global.u32 %0, [%1];"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release_sys(unsigned* p, unsigned v) {
+  asm volatile("st.release.sys.global.u32 [%0], %1;"
+               :: "l"(p), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// The block pushes channels [c0, c1) of its shard's input tails (the last
+// P samples of each row of x, 16-byte stores) into the right neighbour's
+// receive slot, fences at system scope, then publishes the epoch in the
+// neighbour's flag of each channel.  Every thread of the block calls it.
+template <typename T>
+__device__ __forceinline__ void push_tails(const T* x, long long N, int P,
+                                           int c0, int c1, T* peer_recv,
+                                           unsigned* peer_flag,
+                                           unsigned epoch) {
+  const int nvec = (int)(P * sizeof(T) / sizeof(uint4));
+  for (int c = c0; c < c1; ++c) {
+    const uint4* src =
+        reinterpret_cast<const uint4*>(x + (long long)c * N + (N - P));
+    uint4* dst = reinterpret_cast<uint4*>(peer_recv + (long long)c * P);
+    for (int j = threadIdx.x; j < nvec; j += blockDim.x) dst[j] = src[j];
+  }
+  __threadfence_system();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    for (int c = c0; c < c1; ++c) st_release_sys(peer_flag + c, epoch);
+}
+
+// One thread spins until *flag holds epoch (acquire at system scope), then
+// fences; after wait_ns it traps, so that a broken exchange fails the
+// launch instead of hanging the card.  The caller's barrier then lets its
+// other threads read the slot, through L2.
+__device__ __forceinline__ void wait_flag(const unsigned* flag,
+                                          unsigned epoch,
+                                          long long wait_ns) {
+  const unsigned long long t0 = global_ns();
+  while (ld_acquire_sys(flag) != epoch) {
+    __nanosleep(256);
+    if (global_ns() - t0 > (unsigned long long)wait_ns) __trap();
+  }
+  __threadfence_system();
+}
+
 // ------------------------------------------------------ tensor cores
 
 __device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {

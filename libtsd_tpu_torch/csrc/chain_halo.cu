@@ -2,27 +2,36 @@
 // overlap halo exchanged inside the kernel.  Replaces the fused-halo branch
 // of ops/pallas/chain.py::fir_periodogram4096 (halo_axis=..., the JAX
 // package's make_async_remote_copy of each shard's input tail into its
-// right neighbour's VMEM).  The spectrum is chain_frames (chain_body.cuh),
-// the same code as #3; this file adds the exchange.
+// right neighbour's VMEM).  The spectrum is #3's code; this file and
+// chain_wg.cu's kHalo form add the exchange.  Like #3, the tiers with one
+// tap plane (passes 1-2) at K <= chain_wg::K_MAX take chain_wg.cu's
+// persistent wgmma pipeline (chain_wg::chain_halo_kernel), the others
+// chain::chain_frames (chain_halo_kernel below); the route depends on
+// (dtype, passes, K) alone.
 //
 // Push/flag protocol.  Shard t of a row of T shards, call epoch e, slot
 // s = e & 1.  Its receive slot recv[s] (C x P samples, ingest dtype) and
 // flags flag[s] (C words) live on its own device.
 //
-//   push   Block (0, c) of shard t < T - 1 first copies channel c's input
-//          tail, the last P = (D - 1) * 128 samples, into the right
-//          neighbour's recv[s] row c through a peer pointer (16-byte
-//          stores), fences at system scope, and thread 0 stores e into
-//          the neighbour's flag[s][c] with st.release.sys.  The last shard
-//          pushes nothing (the JAX ring wraps its tail to shard 0, which
-//          discards it).
-//   wait   Block (0, c) of shard t > 0, the only block that reads the
-//          history (a channel's first frame), pushes first, then acquires
-//          its own flag[s][c] with ld.acquire.sys until it reads e, and
-//          loads the history from recv[s] row c through L2 (ld.global.cg).
-//          Shard 0 reads the caller's hist0, or zeros.
+//   push   Each channel c of shard t < T - 1 is pushed by one block, in
+//          its prologue: it copies the channel's input tail, the last P =
+//          (D - 1) * 128 samples, into the right neighbour's recv[s] row c
+//          through a peer pointer (16-byte stores), fences at system
+//          scope, and stores e into the neighbour's flag[s][c] with
+//          st.release.sys (chain::push_tails).  chain_frames: block (0,
+//          c); the wgmma body: persistent block b of G pushes channels
+//          [C b / G, C (b + 1) / G).  The last shard pushes nothing (the
+//          JAX ring wraps its tail to shard 0, which discards it).
+//   wait   On shard t > 0, whoever reads a channel's history (a channel's
+//          first frame) first acquires its own flag[s][c] with
+//          ld.acquire.sys until it reads e (chain::wait_flag), then loads
+//          the history from recv[s] row c through L2 (ld.global.cg).
+//          chain_frames: block (0, c) after its push; the wgmma body: the
+//          FIR warpgroup whose pair slot is the channel's first, before
+//          it splits the window.  Shard 0 reads the caller's hist0, or
+//          zeros.
 //
-// Every block that waits has pushed already, and waits only on a shard to
+// Every block pushes before any of its waits, and waits only on a shard to
 // its left, so the chain of waits ends at shard 0, which never waits: no
 // cycle.  On one card the wrapper launches a row's shards in time order on
 // one stream, so a waiting shard's left neighbour has finished before it
@@ -66,24 +75,6 @@
 // written once more for the push.
 #include "chain_body.cuh"
 
-__device__ __forceinline__ unsigned ld_acquire_sys(const unsigned* p) {
-  unsigned v;
-  asm volatile("ld.acquire.sys.global.u32 %0, [%1];"
-               : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void st_release_sys(unsigned* p, unsigned v) {
-  asm volatile("st.release.sys.global.u32 [%0], %1;"
-               :: "l"(p), "r"(v) : "memory");
-}
-
-__device__ __forceinline__ unsigned long long global_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
 // recv/flag: this shard's slot (null on shard 0: history from hist0);
 // peer_recv/peer_flag: the right neighbour's slot (null on the last shard).
 template <typename T, int kPasses>
@@ -96,26 +87,10 @@ chain_halo_kernel(const T* __restrict__ x, const T* __restrict__ hist0,
                   long long wait_ns, unsigned epoch, int frames_per_block) {
   const int c = blockIdx.y;
   if (blockIdx.x == 0 && P > 0) {
-    if (peer_recv != nullptr) {
-      const uint4* src =
-          reinterpret_cast<const uint4*>(x + (long long)c * N + (N - P));
-      uint4* dst = reinterpret_cast<uint4*>(peer_recv + (long long)c * P);
-      const int nvec = (int)(P * sizeof(T) / sizeof(uint4));
-      for (int j = threadIdx.x; j < nvec; j += blockDim.x) dst[j] = src[j];
-      __threadfence_system();
-      __syncthreads();
-      if (threadIdx.x == 0) st_release_sys(peer_flag + c, epoch);
-    }
+    if (peer_recv != nullptr)
+      chain::push_tails(x, N, P, c, c + 1, peer_recv, peer_flag, epoch);
     if (recv != nullptr) {
-      if (threadIdx.x == 0) {
-        const unsigned* f = flag + c;
-        const unsigned long long t0 = global_ns();
-        while (ld_acquire_sys(f) != epoch) {
-          __nanosleep(256);
-          if (global_ns() - t0 > (unsigned long long)wait_ns) __trap();
-        }
-        __threadfence_system();
-      }
+      if (threadIdx.x == 0) chain::wait_flag(flag + c, epoch, wait_ns);
       __syncthreads();
     }
   }
@@ -148,6 +123,14 @@ static int launch(const void* x, const void* hist0, const void* recv,
   return (int)cudaGetLastError();
 }
 
+int chain_wg_halo_launch(const void* x, const void* hist0, const void* recv,
+                         const unsigned* flag, void* peer_recv,
+                         unsigned* peer_flag, const float* taps,
+                         const float* tw, float* out, int dtype, int passes,
+                         long long N, int C, int K, int P, int hist0_len,
+                         int hist0_stride, long long wait_ns, unsigned epoch,
+                         cudaStream_t stream);
+
 // dtype and passes: as fir_periodogram4096 (chain.cu), the same pairs.
 // P: samples pushed per channel, a multiple of 128 and at most N; 0 turns
 // the exchange off (D == 1).  tw: ops/kernels/fft.py twiddles(12).
@@ -160,6 +143,11 @@ extern "C" int fir_periodogram4096_halo(
     int hist0_len, int hist0_stride, long long wait_ns, unsigned epoch,
     cudaStream_t stream) {
   if (C <= 0 || N < chain::NF) return 0;
+  const int wg = chain_wg_halo_launch(x, hist0, recv, flag, peer_recv,
+                                      peer_flag, taps, tw, out, dtype, passes,
+                                      N, C, K, P, hist0_len, hist0_stride,
+                                      wait_ns, epoch, stream);
+  if (wg >= 0) return wg;
 #define CHAIN_HALO_LAUNCH(T, Q)                                              \
   launch<T, Q>(x, hist0, recv, flag, peer_recv, peer_flag, taps, tw, out, N, \
                C, K, P, hist0_len, hist0_stride, wait_ns, epoch, stream)

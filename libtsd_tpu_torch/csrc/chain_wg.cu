@@ -7,8 +7,17 @@
 // h1, products summed in fp32, an fp32 DFT) and its pair scheme (frames a,
 // b of a pair as one complex 4096-point transform on fft_reg::Core<12>,
 // |Z|^2 summed, (S[k] + S[-k]) / 2 per channel, atomicAdd into the zeroed
-// output).  chain.cu's C entry sends the other tiers, larger K and kernel
-// #11 to chain::chain_frames.
+// output).  chain.cu's C entry sends the other tiers and larger K to
+// chain::chain_frames.
+//
+// Kernel #11 (chain_halo.cu: a time shard of a mesh row, its halo
+// exchanged inside the kernel) runs the same body with kHalo on, as
+// chain_halo_kernel, for the same tiers and K: each block first pushes its
+// share of the shard's input tails to the right neighbour, and a FIR
+// warpgroup whose pair is a channel's first waits for the left
+// neighbour's flag before it loads the history from the receive slot
+// through L2 (chain_halo.cu has the protocol).  With kHalo off the body
+// compiles to chain_kernel as before.
 //
 // Bound on the H100 at 256 x 2^22 int16, 256 taps: 0.64 ms to read the
 // samples once; the banded-Toeplitz FIR below does 640 tensor flops a
@@ -298,7 +307,7 @@ __device__ __forceinline__ void put_chunk(const chain::Raw8& r, int ci,
 // min(hist_len, 256) samples before a channel's first pair, zeros before
 // that and after a lone frame.  A thread's chunks ci = tid + 128 k are all
 // loaded first, then converted and stored.
-template <typename T, int kX>
+template <typename T, int kX, bool kCoherentHist>
 __device__ __forceinline__ void split(const T* x, const T* hist, long long N,
                                       int hist_len, int hist_stride,
                                       const Slot& sl, unsigned char* win,
@@ -312,9 +321,14 @@ __device__ __forceinline__ void split(const T* x, const T* hist, long long N,
   for (int k = 0; k < CPT; ++k) {
     const int ci = tid + 128 * k;
     r[k] = {make_uint4(0, 0, 0, 0), make_uint4(0, 0, 0, 0)};
-    if (ci < CHUNKS && 8 * ci >= lo && 8 * ci < hi)
-      r[k] = chain::ld_raw<false>(sl.p > 0 || 8 * ci >= HALO ? row + 8 * ci
-                                                             : hrow + 8 * ci);
+    if (ci < CHUNKS && 8 * ci >= lo && 8 * ci < hi) {
+      if constexpr (kCoherentHist)   // a peer's stores: through L2
+        r[k] = sl.p > 0 || 8 * ci >= HALO ? chain::ld_raw<false>(row + 8 * ci)
+                                          : chain::ld_raw<true>(hrow + 8 * ci);
+      else
+        r[k] = chain::ld_raw<false>(sl.p > 0 || 8 * ci >= HALO ? row + 8 * ci
+                                                               : hrow + 8 * ci);
+    }
   }
 #pragma unroll
   for (int k = 0; k < CPT; ++k)
@@ -324,12 +338,28 @@ __device__ __forceinline__ void split(const T* x, const T* hist, long long N,
 
 // ------------------------------------------------------------- body
 
-template <typename T, int kPasses>
+// Kernel #11's exchange, for frames<..., true>: flag, this shard's flags of
+// the call's slot (null: no left slot, hist is the caller's); peer_recv and
+// peer_flag, the right neighbour's slot (null: the last shard); P samples
+// pushed a channel; wait_ns before a wait traps; the call's epoch.  #3
+// passes a null pointer: a temporary passed by reference instead changed
+// chain_kernel's SASS (the same instructions, some in another order).
+template <typename T>
+struct Halo {
+  const unsigned* flag;
+  T* peer_recv;
+  unsigned* peer_flag;
+  int P;
+  long long wait_ns;
+  unsigned epoch;
+};
+
+template <typename T, int kPasses, bool kHalo>
 __device__ __forceinline__ void frames(
     const T* __restrict__ x, const T* __restrict__ hist,
     const float* __restrict__ taps, const float2* __restrict__ tw,
     float* __restrict__ out, long long N, int C, int K, int hist_len,
-    int hist_stride) {
+    int hist_stride, const Halo<T>* halo) {
   constexpr int kX = kPasses;                  // x2 == 0 at passes 1
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* full_pl = reinterpret_cast<uint64_t*>(smem);
@@ -343,6 +373,15 @@ __device__ __forceinline__ void frames(
   const long long t0 = T_ * blockIdx.x / gridDim.x;
   const long long t1 = T_ * (blockIdx.x + 1) / gridDim.x;
   const int n = (int)(t1 - t0);
+  if constexpr (kHalo) {
+    // before any wait of the block (the no-cycle argument): channels [C b
+    // / G, C (b + 1) / G), each pushed by exactly one block
+    if (halo->peer_recv != nullptr)
+      chain::push_tails(x, N, halo->P, (int)((long long)C * blockIdx.x /
+                                             gridDim.x),
+                        (int)((long long)C * (blockIdx.x + 1) / gridDim.x),
+                        halo->peer_recv, halo->peer_flag, halo->epoch);
+  }
   if (n <= 0) return;
   if (threadIdx.x == 0) {
     for (int b = 0; b < 2; ++b) {
@@ -367,7 +406,17 @@ __device__ __forceinline__ void frames(
     float d[64];
 #pragma unroll 1
     for (int i = wg; i < n; i += 2, sl = advance(sl, 2, P, F)) {
-      split<T, kX>(x, hist, N, hist_len, hist_stride, sl, win, tid);
+      if constexpr (kHalo) {
+        if (sl.p == 0 && halo->flag != nullptr) {  // a channel's first pair
+          if (tid == 0) chain::wait_flag(halo->flag + sl.c, halo->epoch,
+                                         halo->wait_ns);
+          __syncwarp();                          // bar.sync is .aligned
+          bar_sync(BAR_FIR + wg, 128);
+          // the history's loads cannot be hoisted above the wait
+          asm volatile("" : "+l"(hist)::"memory");
+        }
+      }
+      split<T, kX, kHalo>(x, hist, N, hist_len, hist_stride, sl, win, tid);
       bar_sync(BAR_FIR + wg, 128);             // the window is whole
       wg_fence();
       fir_pair<kX>(d, tiles0, win0);
@@ -447,16 +496,33 @@ chain_kernel(const T* __restrict__ x, const T* __restrict__ hist,
              const float* __restrict__ taps, const float2* __restrict__ tw,
              float* __restrict__ out, long long N, int C, int K,
              int hist_len, int hist_stride) {
-  frames<T, kPasses>(x, hist, taps, tw, out, N, C, K, hist_len,
-                     hist_stride);
+  frames<T, kPasses, false>(x, hist, taps, tw, out, N, C, K, hist_len,
+                            hist_stride, nullptr);
 }
 
+// Kernel #11 on this body.  recv/flag: this shard's slot (null on shard 0:
+// history from hist0); peer_recv/peer_flag: the right neighbour's slot
+// (null on the last shard).
 template <typename T, int kPasses>
-static int launch(const void* x, const void* hist, const float* taps,
-                  const float* tw, float* out, long long N, int C, int K,
-                  int hist_len, int hist_stride, cudaStream_t stream) {
-  constexpr int smem = smem_bytes(kPasses);
-  auto kernel = chain_kernel<T, kPasses>;
+__global__ void __launch_bounds__(THREADS, 1)
+chain_halo_kernel(const T* __restrict__ x, const T* __restrict__ hist0,
+                  const T* recv, const unsigned* flag, T* peer_recv,
+                  unsigned* peer_flag, const float* __restrict__ taps,
+                  const float2* __restrict__ tw, float* __restrict__ out,
+                  long long N, int C, int K, int P, int hist0_len,
+                  int hist0_stride, long long wait_ns, unsigned epoch) {
+  const bool from_left = recv != nullptr && P > 0;
+  const Halo<T> halo{from_left ? flag : nullptr, P > 0 ? peer_recv : nullptr,
+                     peer_flag, P, wait_ns, epoch};
+  frames<T, kPasses, true>(
+      x, from_left ? recv : hist0, taps, tw, out, N, C, K,
+      from_left ? P : hist0_len, from_left ? P : hist0_stride, &halo);
+}
+
+// The grid of a launch of `kernel`: one persistent block a resident slot
+// (one an SM), at most one a pair slot.
+template <typename Kernel>
+static unsigned grid_for(Kernel kernel, int smem, long long N, int C) {
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        smem);
   int dev = 0, sms = 0, per_sm = 0;
@@ -466,33 +532,69 @@ static int launch(const void* x, const void* hist, const float* taps,
                                                 smem);
   const long long pairs = (N / NF + 1) / 2 * C;
   const long long slots = (long long)sms * (per_sm > 0 ? per_sm : 1);
-  const unsigned grid = (unsigned)(pairs < slots ? pairs : slots);
-  kernel<<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(hist), taps,
-      reinterpret_cast<const float2*>(tw), out, N, C, K, hist_len,
-      hist_stride);
-  return (int)cudaGetLastError();
+  return (unsigned)(pairs < slots ? pairs : slots);
+}
+
+// The (dtype, passes) pairs this body takes, with K <= K_MAX: launch(Tier<T,
+// passes>()) for those, -1 (chain_frames runs it) for any other.
+template <typename T, int kPasses>
+struct Tier {
+  using type = T;
+  static constexpr int passes = kPasses;
+};
+template <typename Launch>
+static int route(int dtype, int passes, int K, Launch launch) {
+  if (K > K_MAX) return -1;
+  switch (dtype * 4 + passes) {
+    case 2: return launch(Tier<float, 2>());
+    case 5: return launch(Tier<__nv_bfloat16, 1>());
+    case 9: return launch(Tier<int8_t, 1>());
+    case 14: return launch(Tier<int16_t, 2>());
+    default: return -1;
+  }
 }
 
 }  // namespace chain_wg
 
-// The route of chain.cu's fir_periodogram4096: the pairs (dtype, passes)
-// this body takes, with K <= K_MAX; returns -1 for any other (chain_frames
-// runs it), else the launch's cudaGetLastError().
+// The route of chain.cu's fir_periodogram4096: -1 where chain_frames runs
+// the call, else the launch's cudaGetLastError().
 int chain_wg_launch(const void* x, const void* hist, const float* taps,
                     const float* tw, float* out, int dtype, int passes,
                     long long N, int C, int K, int hist_len, int hist_stride,
                     cudaStream_t stream) {
-  if (K > chain_wg::K_MAX) return -1;
-#define WG_LAUNCH(T, P)                                                   \
-  chain_wg::launch<T, P>(x, hist, taps, tw, out, N, C, K, hist_len,       \
-                         hist_stride, stream)
-  switch (dtype * 4 + passes) {
-    case 2: return WG_LAUNCH(float, 2);
-    case 5: return WG_LAUNCH(__nv_bfloat16, 1);
-    case 9: return WG_LAUNCH(int8_t, 1);
-    case 14: return WG_LAUNCH(int16_t, 2);
-    default: return -1;
-  }
-#undef WG_LAUNCH
+  using namespace chain_wg;
+  return route(dtype, passes, K, [&](auto tier) {
+    using T = typename decltype(tier)::type;
+    constexpr int kP = decltype(tier)::passes;
+    constexpr int smem = smem_bytes(kP);
+    const unsigned grid = grid_for(chain_kernel<T, kP>, smem, N, C);
+    chain_kernel<T, kP><<<grid, THREADS, smem, stream>>>(
+        static_cast<const T*>(x), static_cast<const T*>(hist), taps,
+        reinterpret_cast<const float2*>(tw), out, N, C, K, hist_len,
+        hist_stride);
+    return (int)cudaGetLastError();
+  });
+}
+
+// The same route for chain_halo.cu's fir_periodogram4096_halo (kernel #11).
+int chain_wg_halo_launch(const void* x, const void* hist0, const void* recv,
+                         const unsigned* flag, void* peer_recv,
+                         unsigned* peer_flag, const float* taps,
+                         const float* tw, float* out, int dtype, int passes,
+                         long long N, int C, int K, int P, int hist0_len,
+                         int hist0_stride, long long wait_ns, unsigned epoch,
+                         cudaStream_t stream) {
+  using namespace chain_wg;
+  return route(dtype, passes, K, [&](auto tier) {
+    using T = typename decltype(tier)::type;
+    constexpr int kP = decltype(tier)::passes;
+    constexpr int smem = smem_bytes(kP);
+    const unsigned grid = grid_for(chain_halo_kernel<T, kP>, smem, N, C);
+    chain_halo_kernel<T, kP><<<grid, THREADS, smem, stream>>>(
+        static_cast<const T*>(x), static_cast<const T*>(hist0),
+        static_cast<const T*>(recv), flag, static_cast<T*>(peer_recv),
+        peer_flag, taps, reinterpret_cast<const float2*>(tw), out, N, C, K, P,
+        hist0_len, hist0_stride, wait_ns, epoch);
+    return (int)cudaGetLastError();
+  });
 }

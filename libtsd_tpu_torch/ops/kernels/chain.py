@@ -41,8 +41,8 @@ tiers round to bf16 on purpose; the port is therefore closer to a float64
 reference than the JAX tier it is compared with.  ``tb`` and ``pipe``
 (TPU scheduling knobs that do not change results) are not ported.  The
 ``halo_axis`` form is kernel #11, ``ops.kernels.chain_halo``
-(``csrc/chain_halo.cu``), which shares this kernel's body
-(``csrc/chain_body.cuh``) and :func:`kernel_taps`.
+(``csrc/chain_halo.cu``), which shares this kernel's two bodies, their
+route (:func:`wg_route`) and :func:`kernel_taps`.
 
 :func:`kernel_taps` checks and trims a G once: its result is cached per G
 (a weak reference, so the cache never keeps G alive), G's version counter
@@ -125,19 +125,18 @@ K_MAX_WG = 257   # chain_wg::K_MAX: E_MAX = 5 tap blocks of 64
 
 
 def wg_route(passes: int, K: int) -> bool:
-    """True where #3 runs the wgmma body (``csrc/chain_wg.cu``; the C
-    entry's ``chain_wg_launch`` decides the same): passes 1 or 2 with at
-    most ``K_MAX_WG`` taps.  #11 always runs ``chain_frames``."""
+    """True where #3 and #11 run the wgmma body (``csrc/chain_wg.cu``; the
+    C entries' ``chain_wg_launch`` and ``chain_wg_halo_launch`` decide the
+    same): passes 1 or 2 with at most ``K_MAX_WG`` taps."""
     return passes in (1, 2) and K <= K_MAX_WG
 
 
 def smem_bytes(passes: int, K: int, sample_bytes: int) -> int:
-    """Dynamic shared memory of a fused-chain block, of the body #3 takes
-    (``chain_wg::smem_bytes`` in ``csrc/chain_wg.cu`` on :func:`wg_route`,
-    else ``chain::smem_bytes`` in ``csrc/chain_body.cuh``; keep them in
-    step): passes 0 with K padded taps, passes >= 1 with K taps, samples
-    of ``sample_bytes``.  Where #3 takes the wgmma body, #11's
-    ``chain_frames`` needs less at the same K."""
+    """Dynamic shared memory of a fused-chain block, of the body #3 and
+    #11 take (``chain_wg::smem_bytes`` in ``csrc/chain_wg.cu`` on
+    :func:`wg_route`, else ``chain::smem_bytes`` in
+    ``csrc/chain_body.cuh``; keep them in step): passes 0 with K padded
+    taps, passes >= 1 with K taps, samples of ``sample_bytes``."""
     if wg_route(passes, K):
         xplane = 8 * 16 * ((256 + 2 * NFFT) // 64 + 1)
         planes = 2 * (NFFT + NFFT // 32) * 8    # two pairs, float2 slots

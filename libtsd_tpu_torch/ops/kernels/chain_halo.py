@@ -9,9 +9,15 @@ VMEM with one ``make_async_remote_copy``.  Here each shard's kernel stores
 its tail into the right neighbour's receive slot through a (peer) pointer
 and publishes an epoch-tagged flag; the neighbour's first-frame blocks
 acquire the flag and read the history from the slot.  The spectrum is
-#3's own code (``csrc/chain_body.cuh``) and taps (:func:`chain.kernel_taps`,
-checked and trimmed once per G and device), so one shard's partial
-spectrum equals #3 called with its left neighbour's tail as ``hist0``.
+#3's own code and taps (:func:`chain.kernel_taps`, checked and trimmed once
+per G and device), so one shard's partial spectrum equals #3 called with
+its left neighbour's tail as ``hist0``.  Like #3, the tiers with one tap
+plane at K <= ``chain.K_MAX_WG`` (:func:`chain.wg_route`) run the
+persistent ``wgmma`` pipeline of ``csrc/chain_wg.cu`` (each block pushes
+its share of the channels in its prologue; a FIR warpgroup waits for the
+flag before a channel's first pair), the others ``chain_frames``
+(``csrc/chain_body.cuh``).  ``fir_periodogram4096_halo.wg_launches``
+counts the launches that took the ``wgmma`` body, beside ``launches``.
 What bounds it: #3's tensor-core FIR (the fp32 FMAs for "highest"), plus
 (D - 1) 128 samples a channel pushed.
 
@@ -72,7 +78,7 @@ import torch.distributed as dist
 from ...utils.monitor import span, spanned
 from . import _build
 from .chain import (_L, _DTYPE_CODE, _history, _ingest, aligned,
-                    fir_periodogram4096_plain, kernel_taps)
+                    fir_periodogram4096_plain, kernel_taps, wg_route)
 from .fft import twiddles
 from .periodogram import NFFT
 
@@ -429,6 +435,7 @@ def fir_periodogram4096_halo(xs: Sequence[torch.Tensor], G: torch.Tensor,
                 _build.stream_ptr(dev))
             _build.check(err, "fir_periodogram4096_halo")
             fir_periodogram4096_halo.launches += 1
+            fir_periodogram4096_halo.wg_launches += wg_route(passes, K)
             if multi:
                 bufs.done[s][t] = torch.cuda.Event()
                 bufs.done[s][t].record(stream)
@@ -439,3 +446,4 @@ def fir_periodogram4096_halo(xs: Sequence[torch.Tensor], G: torch.Tensor,
 
 
 fir_periodogram4096_halo.launches = 0
+fir_periodogram4096_halo.wg_launches = 0

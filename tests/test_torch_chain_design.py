@@ -876,3 +876,210 @@ def test_wg_route_and_shared_memory(passes, sample_bytes):
             + 2 * passes * WG_XPLANE)
     assert chain.smem_bytes(passes, 256, sample_bytes) == want
     assert want <= 196 * 1024 <= _build.SMEM_MAX
+
+
+# ------------------------------------------ the wgmma body with #11's halo
+# chain_wg.cu with kHalo on (chain_wg::chain_halo_kernel): persistent
+# block b of G pushes channels [C b / G, C (b + 1) / G) of its shard's
+# input tails (the last P = (D - 1) 128 samples) into the right
+# neighbour's receive slot in its prologue, then publishes their flags;
+# a FIR warpgroup whose pair slot is a channel's first (p == 0) on a shard
+# with a left slot waits for that channel's flag before it splits, and
+# then reads the history (hist_len P) from the slot.
+
+def wg_push_ranges(C, G):
+    """Each block's channels to push, as the kernel cuts them (64-bit
+    products, floor division)."""
+    return [range(C * b // G, C * (b + 1) // G) for b in range(G)]
+
+
+def halo_len(K):
+    """P = (D - 1) 128 for the D blocks of fir_toeplitz_mats at K taps."""
+    return ((K - 2) // 128 + 1) * 128
+
+
+def wg_halo_model(xs, hist0, h, K, passes, G):
+    """A row of time shards through the model's blocks: shard t's blocks
+    copy their channels' last P samples into shard t + 1's receive slot
+    (each row once), and shard t > 0 runs wg_model with that slot as its
+    history; shard 0 takes hist0 ((C, P) samples, or None: zero state).
+    Returns each shard's partial spectra."""
+    C, N_ = xs[0].shape
+    P = halo_len(K)
+    recv = [np.full((C, max(P, 1)), np.nan) for _ in xs]
+    for t, x in enumerate(xs[:-1]):
+        for chans in wg_push_ranges(C, G):
+            for c in chans:
+                assert np.isnan(recv[t + 1][c]).all()
+                recv[t + 1][c, :P] = x[c, N_ - P:]
+    none = np.zeros((C, 1))
+    outs = []
+    for t, x in enumerate(xs):
+        if t > 0:
+            hist, hist_len = (recv[t], P) if P else (none, 0)
+        else:
+            hist, hist_len = (hist0, P) if hist0 is not None else (none, 0)
+        outs.append(wg_model(x, hist, hist_len, h, K, passes, G))
+    return outs
+
+
+@pytest.mark.parametrize("with_hist0", [False, True])
+@pytest.mark.parametrize("K", [1, 64, 65, 256, WG_KMAX])
+@pytest.mark.parametrize("T,frames", [(2, 3), (3, 1), (4, 2)])
+def test_wg_halo_model_reproduces_the_row(T, frames, K, with_hist0):
+    """Two channels of int16 samples cut into 2-4 time shards (three frames
+    a shard, a pair and a lone frame; one; two) over 2 blocks a shard: the
+    shards' spectra summed are np.convolve's periodogram of the whole row
+    after hist0 (or zero state), each shard's history its left
+    neighbour's pushed tail; passes 2 the FIR of x with the bf16 taps,
+    passes 1 that of x1, to 1e-12 (float64 sums)."""
+    rng = np.random.default_rng(K + 10 * T + with_hist0)
+    h1 = bf16(rng.standard_normal(K).astype(np.float32))
+    C, P = 2, halo_len(K)
+    x = rng.integers(-20000, 20001, (C, T * frames * NF)).astype(np.float64)
+    xs = np.split(x, T, axis=1)
+    hist0 = (rng.integers(-20000, 20001, (C, P)).astype(np.float64)
+             if with_hist0 and P else None)
+    for passes in (1, 2):
+        got = sum(wg_halo_model(xs, hist0, h1, K, passes, 2))
+        for c in range(C):
+            hc = hist0[c] if hist0 is not None else np.zeros(0)
+            xc = x[c] if passes == 2 else split3(x[c])[0]
+            hc = hc if passes == 2 else split3(hc)[0]
+            want = pgram(conv_h(xc, hc, h1))
+            assert rel(got[c], want) < 1e-12, (passes, c)
+
+
+@pytest.mark.parametrize("G", [1, 7, 132, 300])
+@pytest.mark.parametrize("C", [1, 3, 256])
+def test_wg_push_ranges_cover_each_channel_once(C, G):
+    """The prologue's channel ranges, over the grid's blocks in order, are
+    0 .. C - 1 each exactly once: more blocks than channels leave some
+    blocks none; a block takes at most ceil(C / G)."""
+    ranges = wg_push_ranges(C, G)
+    assert [c for r in ranges for c in r] == list(range(C))
+    assert max(len(r) for r in ranges) == -(-C // G)
+    assert sum(len(r) == 0 for r in ranges) == max(G - C, 0)
+
+
+def wg_halo_walk(T, C, F, G, one_card, seed):
+    """One call of #11 on the wgmma body over a row of T shards of G
+    blocks, each block's prologue (its pushes, then after the fence and
+    barrier its flags) and its two FIR warpgroups (after the tiles'
+    barrier; slots i = w, w + 2, ... of [S b / G, S (b + 1) / G), S = C
+    ceil(F / 2); at a channel's first pair on t > 0 a wait for that
+    channel's flag, then the split that reads the slot) run as actors in a
+    random interleaving, a wait passing only once its flag holds the
+    call's epoch.  The receive slots start poisoned and the flags at the
+    call two back's epoch.  one_card: a shard's blocks start once every
+    block of the shard before it has ended (one stream in time order);
+    else all shards run at once (a card each).  Returns each block's
+    events and the number of wait steps that found the flag unset."""
+    rng = np.random.default_rng(seed)
+    S = C * ((F + 1) // 2)
+    recv = [[None] * C for _ in range(T)]
+    flag = np.full((T, C), -1)                 # the epoch of call e - 2
+    through, ended = set(), set()              # past the tiles' barrier
+    logs = {(t, b): [] for t in range(T) for b in range(G)}
+    blocked = [0]
+
+    def prologue(t, b):
+        yield lambda: not one_card or t == 0 or all(
+            (t - 1, a) in ended for a in range(G))
+        chans = wg_push_ranges(C, G)[b] if t + 1 < T else []
+        for c in chans:                        # 16-byte stores
+            yield lambda: True
+            recv[t + 1][c] = (t, c)
+            logs[t, b].append(("push", c))
+        for c in chans:                        # after the block's barrier
+            yield lambda: True
+            flag[t + 1, c] = 0
+            logs[t, b].append(("release", c))
+        yield lambda: True
+        through.add((t, b))
+
+    def warpgroup(t, b, w):
+        yield lambda: (t, b) in through
+        for i in range(S * b // G + w, S * (b + 1) // G, 2):
+            c, p = divmod(i, (F + 1) // 2)
+            if p == 0 and t > 0:
+                def ready(c=c):
+                    blocked[0] += flag[t, c] != 0
+                    return flag[t, c] == 0
+                yield ready
+                logs[t, b].append(("wait", c))
+                assert recv[t][c] == (t - 1, c)    # the left tail, pushed
+            yield lambda: True
+            logs[t, b].append(("split", c, p))
+
+    # actors 3 k .. 3 k + 2: block k's prologue and two warpgroups; the
+    # block ends when all three have
+    live = {}
+    for t in range(T):
+        for b in range(G):
+            for a in (prologue(t, b), warpgroup(t, b, 0),
+                      warpgroup(t, b, 1)):
+                live[len(live)] = a
+    preds = {k: next(a) for k, a in live.items()}
+    left = [3] * (T * G)
+    while live:
+        ready = [k for k in live if preds[k]()]
+        assert ready, "deadlock"
+        k = ready[rng.integers(len(ready))]
+        try:
+            preds[k] = next(live[k])
+        except StopIteration:
+            del live[k]
+            left[k // 3] -= 1
+            if left[k // 3] == 0:
+                ended.add(divmod(k // 3, G))
+    return logs, blocked[0]
+
+
+@pytest.mark.parametrize("one_card", [False, True])
+@pytest.mark.parametrize("T,C,F,G", [(2, 1, 1, 1), (2, 3, 5, 2),
+                                     (4, 2, 8, 5), (3, 5, 9, 7),
+                                     (4, 2, 2, 5), (2, 7, 3, 3)])
+def test_wg_halo_pushes_precede_every_wait(T, C, F, G, one_card):
+    """In random interleavings of every block of a row (more blocks than
+    slots and than channels included): no deadlock; each block's pushes
+    and flags all come before its first wait; each wait sees its
+    channel's tail from the left shard; every slot is split once; every
+    channel's first pair on t > 0 waits once.  In time order on one card
+    no wait ever finds its flag unset."""
+    for seed in range(8):
+        logs, blocked = wg_halo_walk(T, C, F, G, one_card, seed)
+        for (t, b), log in logs.items():
+            kinds = [e[0] for e in log]
+            if "wait" in kinds:
+                first = kinds.index("wait")
+                assert "push" not in kinds[first:]
+                assert "release" not in kinds[first:]
+            pushed = [e[1] for e in log if e[0] == "push"]
+            want = list(wg_push_ranges(C, G)[b]) if t + 1 < T else []
+            assert pushed == want
+            assert [e[1] for e in log if e[0] == "release"] == want
+        for t in range(T):
+            splits = sorted(e[1:] for b in range(G) for e in logs[t, b]
+                            if e[0] == "split")
+            assert splits == [(c, p) for c in range(C)
+                              for p in range((F + 1) // 2)]
+            waits = sorted(e[1] for b in range(G) for e in logs[t, b]
+                           if e[0] == "wait")
+            assert waits == (list(range(C)) if t > 0 else [])
+        if one_card:
+            assert blocked == 0
+
+
+def test_wg_halo_kernel_name_is_the_metrics():
+    """The benchmark's #11 metrics find the kernel by its bare function
+    name (portbench/trace.py's kernel_ident), so the wgmma body's #11 keeps
+    the name chain_halo_kernel."""
+    from portbench.trace import kernel_ident
+    assert kernel_ident(
+        "void chain_wg::chain_halo_kernel<short, 2>(short const*, short "
+        "const*, short const*, unsigned int const*, short*, unsigned int*, "
+        "float const*, float2 const*, float*, long long, int, int, int, "
+        "int, int, long long, unsigned int)") == "chain_halo_kernel"
+    assert kernel_ident("void chain_wg::chain_kernel<short, 2>(short "
+                        "const*)") == "chain_kernel"

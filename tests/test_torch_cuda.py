@@ -1020,28 +1020,42 @@ def _halo_inputs(g, dev, precision, T, K, with_hist0, C=3, frames=3):
         (h0 if with_hist0 else None)
 
 
+@pytest.mark.parametrize("fir_passes", [2, 3])
 @pytest.mark.parametrize("with_hist0", [False, True])
-@pytest.mark.parametrize("K", [1, 200, 256])          # D = 1, 2, 3
+@pytest.mark.parametrize("K", [1, 200, 256, 257])     # D = 1, 3, 3, 3
 @pytest.mark.parametrize("precision", TIERS)
 @pytest.mark.parametrize("T", [2, 4])
-def test_chain_halo_kernel(dev, T, precision, K, with_hist0):
+def test_chain_halo_kernel(dev, T, precision, K, with_hist0, fir_passes):
+    """Every tier at both pass counts: the tiers with one tap plane (bf16,
+    int8; int16 and split at passes 2) at K <= 257 take the wgmma body
+    (chain_wg::chain_halo_kernel), the others chain_frames; wg_launches
+    grows by T exactly where chain.wg_route says."""
     from libtsd_tpu_torch.ops.kernels import chain_halo
     g = torch.Generator(device=dev).manual_seed(K + T)
     G, xs, h0 = _halo_inputs(g, dev, precision, T, K, with_hist0)
     before = chain_halo.fir_periodogram4096_halo.launches
-    k = chain_halo.fir_periodogram4096_halo(xs, G, h0, precision)
+    wg = chain_halo.fir_periodogram4096_halo.wg_launches
+    k = chain_halo.fir_periodogram4096_halo(xs, G, h0, precision, fir_passes)
     assert chain_halo.fir_periodogram4096_halo.launches == before + T
-    p = chain_halo.fir_periodogram4096_halo_plain(xs, G, h0, precision)
+    _, Kt, passes = chain.kernel_taps(G, precision, fir_passes, dev)
+    assert chain.wg_route(passes, Kt) == (
+        _wg_tier(precision, fir_passes) and K <= chain.K_MAX_WG)
+    assert chain_halo.fir_periodogram4096_halo.wg_launches == wg + T * (
+        chain.wg_route(passes, Kt))
+    p = chain_halo.fir_periodogram4096_halo_plain(xs, G, h0, precision,
+                                                  fir_passes)
     for a, b in zip(k, p):
         assert rel(a, b) < TOL
         assert bin_err(a, b) < TOL_BIN
 
 
+@pytest.mark.parametrize("fir_passes", [2, 3])
 @pytest.mark.parametrize("precision", ["highest", "bf16", "int16", "int8"])
-def test_chain_halo_reused_and_poisoned_slots(dev, precision):
+def test_chain_halo_reused_and_poisoned_slots(dev, precision, fir_passes):
     """The same HaloBuffers over calls: a second input gives its own
     spectra (no stale flag or slot is read), and slots filled with NaN (an
-    integer sentinel) beforehand give finite, correct spectra."""
+    integer sentinel) beforehand give finite, correct spectra; on both
+    bodies (bf16, int8 and int16/2 take the wgmma body)."""
     from libtsd_tpu_torch.ops.kernels import chain_halo
     g = torch.Generator(device=dev).manual_seed(3)
     T = 4
@@ -1052,8 +1066,9 @@ def test_chain_halo_reused_and_poisoned_slots(dev, precision):
             for r in bufs.recv:
                 r.fill_(float("nan") if r.is_floating_point() else 77)
         k = chain_halo.fir_periodogram4096_halo(xs, G, None, precision,
-                                                bufs=bufs)
-        p = chain_halo.fir_periodogram4096_halo_plain(xs, G, None, precision)
+                                                fir_passes, bufs=bufs)
+        p = chain_halo.fir_periodogram4096_halo_plain(xs, G, None, precision,
+                                                      fir_passes)
         assert bufs.epoch == call + 1
         for a, b in zip(k, p):
             assert bool(torch.isfinite(a).all())
