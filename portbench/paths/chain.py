@@ -13,6 +13,12 @@ import torch
 from portbench import signals
 from portbench.spans import span
 
+# the faults ``Path(fault=...)`` plants in the timed path, each of which
+# must make a run not correct (the benchmark's tests plant each one)
+FAULTS = ("half_batch", "altered")
+# the traffic keys a tiny run on the CPU overrides (the benchmark's tests)
+TINY = {"channels": 4, "block": 4096 * 4, "ring": 3}
+
 
 class Path:
     def __init__(self, cell, seed: int, device, mark, control=False,

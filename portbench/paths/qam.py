@@ -21,6 +21,12 @@ import torch
 from portbench import signals
 from portbench.spans import span
 
+# the faults ``Path(fault=...)`` plants in the timed path, each of which
+# must make a run not correct (the benchmark's tests plant each one)
+FAULTS = ("stale_state", "half_batch", "altered")
+# the traffic keys a tiny run on the CPU overrides (the benchmark's tests)
+TINY = {"channels": 8, "nsym": 512, "ring": 3}
+
 
 def _rows(state) -> tuple:
     """The program's carried state as (9, C) rows and the input tail."""

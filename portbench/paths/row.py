@@ -10,7 +10,8 @@ the row's spectra are summed by the port's all-reduce.  Rank 0 copies the
 row's (C, 4096) spectra into pinned host memory.  The row's first shard
 starts from zero history: each step's row is an independent record.
 
-The ranks stop together: every 16 steps rank 0's decision is broadcast.
+The ranks stop together: every 16 steps rank 0's decision is broadcast,
+and read 16 steps later (``agree``).
 The check, on rank 0: the data of every rank made again from the seed,
 and the reference's chain over the whole row record (zero history, then
 each shard with its left neighbour's tail), against the spectra rank 0
@@ -22,6 +23,14 @@ import torch
 
 from portbench import signals
 from portbench.spans import span
+
+# the faults ``Path(fault=...)`` plants in the timed path, each of which
+# must make a run not correct (the benchmark's tests plant each one)
+FAULTS = ("no_exchange", "altered")
+# the traffic keys a tiny run on the CPU overrides (the benchmark's tests):
+# CPU shards over gloo, so the halo goes point to point ("ppermute");
+# "fused" maps kernel #11's slots by CUDA IPC, on cards only
+TINY = {"channels": 4, "block": 4096 * 4, "halo": "ppermute"}
 
 
 def _gen(seed: int, rank: int, device) -> torch.Generator:
@@ -63,6 +72,7 @@ class Path:
         self.host = torch.empty((self.C, 4096), dtype=torch.float32,
                                 pin_memory=device.type == "cuda")
         self.kept = {}
+        self.sent = None   # agree's broadcast in flight
         mark("program")
 
     def warm(self):
@@ -90,9 +100,21 @@ class Path:
                 self.host.copy_(out, non_blocking=True)
 
     def agree(self, stop: bool) -> bool:
+        """Rank 0's ``stop`` of the call before, the same on every rank.
+        Each call sends rank 0's decision without waiting for it and reads
+        the one sent 16 steps back, long since arrived, so no rank's step
+        waits on another rank's host here; the window runs on 16 steps
+        past rank 0's decision, and every step of it counts."""
         flag = torch.tensor([int(stop)])
-        self.dist.broadcast(flag, src=0)
-        return bool(flag.item())
+        sent = (flag, self.dist.broadcast(flag, src=0, async_op=True))
+        prev, self.sent = self.sent, sent
+        if prev is None:
+            return False
+        prev[1].wait()
+        if not prev[0].item():
+            return False
+        sent[1].wait()   # nothing left in flight once the ranks stop
+        return True
 
     def keep(self, i: int, slot: int):
         if self.rank == 0:

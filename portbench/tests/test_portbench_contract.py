@@ -22,24 +22,29 @@ UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 BENCH = load_benchmark()
 
 
-def _with_kept_cells(bench: dict) -> dict:
-    """BENCHMARK.json's entries plus those of ``row_cell.json``: the
-    four-card row cell, whose harness is kept and tested here until a PR
-    proves it on four cards and adds these entries to BENCHMARK.json."""
-    kept = json.loads((PB / "tests" / "row_cell.json").read_text())
-    out = {k: list(v) if isinstance(v, list) else v for k, v in bench.items()}
-    for k in ("configs", "workloads", "per_layer"):
-        have = {e["name"] for e in out[k]}
-        out[k] += [e for e in kept[k] if e["name"] not in have]
-    for m in out["per_layer"]:
-        if m["name"] == "device_idle_pct":
-            m["workloads"] = sorted(set(m["workloads"]) | {
-                w["name"] for w in kept["workloads"]})
+def _cells(bench: dict) -> list:
+    return [w["name"] for w in bench["workloads"]]
+
+
+def _paths(bench: dict) -> dict:
+    """Every path the cells of ``bench`` drive (the ``path`` of their
+    traffic files), with the first cell that drives it."""
+    out = {}
+    for c in _cells(bench):
+        out.setdefault(Cell(c, bench).path, c)
     return out
 
 
-TESTED = _with_kept_cells(BENCH)
-CELLS = [w["name"] for w in TESTED["workloads"]]
+def _fault_cases(bench: dict) -> list:
+    """(cell, fault) for every fault the cell's path module declares; a
+    path without ``FAULTS`` gives none here and fails
+    ``test_every_path_declares_its_test_contract``."""
+    return [(c, f) for c in _cells(bench) for f in getattr(
+        load_module("paths", Cell(c, bench).path), "FAULTS", ())]
+
+
+CELLS = _cells(BENCH)
+FAULT_CASES = _fault_cases(BENCH)
 
 
 def test_top_level_keys_and_limits():
@@ -61,7 +66,7 @@ def test_top_level_keys_and_limits():
                                   "per_layer"])
 def test_names_and_units(kind):
     seen = set()
-    for e in TESTED[kind]:
+    for e in BENCH[kind]:
         assert NAME.match(e["name"]), e["name"]
         assert e["name"] not in seen
         seen.add(e["name"])
@@ -80,8 +85,8 @@ def test_names_and_units(kind):
 
 
 def test_every_cell_reports_what_the_contract_asks():
-    for w in TESTED["workloads"]:
-        cell = Cell(w["name"], TESTED)
+    for w in BENCH["workloads"]:
+        cell = Cell(w["name"], BENCH)
         e2e = {m["name"] for m in cell.end_to_end}
         assert "setup_s" in e2e and len(e2e) >= 2
         assert cell.per_layer, w["name"]
@@ -91,7 +96,7 @@ def test_every_cell_reports_what_the_contract_asks():
 
 @pytest.mark.parametrize("cell", CELLS)
 def test_files_found_by_name(cell):
-    c = Cell(cell, TESTED)
+    c = Cell(cell, BENCH)
     load_module("paths", c.path)
     assert (PB / "reference" / f"{c.path}.py").is_file()
     for m in c.per_layer:
@@ -102,7 +107,7 @@ def test_files_found_by_name(cell):
 
 
 def test_config_files_state_their_cuts():
-    for conf in TESTED["configs"]:
+    for conf in BENCH["configs"]:
         f = json.loads((ROOT / conf["file"]).read_text())
         assert f["reduced"] == conf["reduced"]
         assert f["source"] and f["assumed"] and f["guarantees"]
@@ -123,27 +128,38 @@ def test_roofline_hand_counts():
     assert peaks.least_seconds(0, 3.35e12, 1.0) == (1.0, "bytes")
 
 
-def _tiny(cell: str) -> Cell:
-    c = Cell(cell, TESTED)
+def _tiny(cell: str, bench: dict = BENCH) -> Cell:
+    """The cell at the tiny size its path module's ``TINY`` gives."""
+    c = Cell(cell, bench)
     t = dict(c.traffic, check_steps=2)
-    if c.path == "chain":
-        t.update(channels=4, block=4096 * 4, ring=3)
-    elif c.path == "welch":
-        t.update(channels=2, block=4096 * 8)
-    elif c.path == "qam":
-        t.update(channels=8, nsym=512, ring=3)
-    elif c.path == "row":
-        # CPU shards over gloo: the halo goes point to point ("ppermute");
-        # "fused" maps kernel #11's slots by CUDA IPC, on cards only
-        t.update(channels=4, block=4096 * 4, halo="ppermute")
-    return Cell(cell, TESTED, traffic=t)
+    t.update(load_module("paths", c.path).TINY)
+    return Cell(cell, bench, traffic=t)
 
 
-def _run(cell, seed=12345678901, **kw):
+def _run(cell, seed=12345678901, bench: dict = BENCH, **kw):
     import time
-    return harness.run_cell(_tiny(cell), seed, 0.2, kw.pop("trace", False),
-                            time.perf_counter(), device="cpu",
-                            log=lambda s: None, **kw)
+    return harness.run_cell(_tiny(cell, bench), seed, 0.2,
+                            kw.pop("trace", False), time.perf_counter(),
+                            device="cpu", log=lambda s: None, **kw)
+
+
+def _declares_its_test_contract(cell: str, bench: dict = BENCH) -> None:
+    c = Cell(cell, bench)
+    mod = load_module("paths", c.path)
+    assert hasattr(mod, "Path"), c.path
+    faults = getattr(mod, "FAULTS", None)
+    assert isinstance(faults, tuple) and faults, f"{c.path}: no FAULTS"
+    assert all(isinstance(f, str) for f in faults), faults
+    tiny = getattr(mod, "TINY", None)
+    assert isinstance(tiny, dict) and tiny, f"{c.path}: no TINY"
+
+
+@pytest.mark.parametrize("path", sorted(_paths(BENCH)))
+def test_every_path_declares_its_test_contract(path):
+    """Each path module declares the faults its ``Path`` honours and the
+    traffic of its tiny run: these tests read both, so a new path needs no
+    edit here."""
+    _declares_its_test_contract(_paths(BENCH)[path])
 
 
 @pytest.mark.parametrize("cell", CELLS)
@@ -170,14 +186,7 @@ def test_traced_line_has_breakdown(cell):
     assert list(r)[-1] == "checks"
 
 
-FAULTS = {"chain": ["half_batch", "altered"],
-          "welch": ["half_batch", "altered"],
-          "qam": ["stale_state", "half_batch", "altered"],
-          "row": ["no_exchange", "altered"]}
-
-
-@pytest.mark.parametrize("cell,fault", [(c, f) for c in CELLS for f in
-                                        FAULTS[Cell(c, TESTED).path]])
+@pytest.mark.parametrize("cell,fault", FAULT_CASES)
 def test_a_broken_timed_path_is_not_correct(cell, fault):
     r = _run(cell, seed=7, fault=fault)
     assert not r["correct"], r["checks"]

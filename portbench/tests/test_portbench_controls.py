@@ -14,7 +14,7 @@ import pytest
 
 from portbench import harness
 from portbench.harness import Cell
-from portbench.tests.test_portbench_contract import CELLS, TESTED, _run
+from portbench.tests.test_portbench_contract import BENCH, CELLS, _run
 
 SEEDS = (2147483659, 3000000019, 4000000007)
 
@@ -29,7 +29,7 @@ def test_control_is_not_correct_on_the_cpu(cell):
 @pytest.mark.parametrize("cell", CELLS)
 def test_control_is_not_correct_on_the_card(cell):
     import torch
-    c = Cell(cell, TESTED)
+    c = Cell(cell, BENCH)
     if not torch.cuda.is_available() or \
             torch.cuda.device_count() < c.chips:
         pytest.skip(f"needs {c.chips} NVIDIA card(s)")

@@ -1,47 +1,29 @@
-"""The per-layer metrics that read the port's own spans (``tsd.*``) and
-the row's NCCL kernels, and the number of spans a step opens, on the CPU
-at tiny sizes.  The row cell runs over gloo in its workers; its new
-metrics wait, with the cell, beside ``row_cell.json`` in
-``row_cell_spans.json``."""
+"""The per-layer metrics that read the port's own spans (``tsd.*``,
+``program_span`` in BENCHMARK.json) and the row's NCCL kernels, and the
+number of spans a step opens, on the CPU at tiny sizes.  What each cell
+must read comes from BENCHMARK.json; a cell across cards runs over gloo in
+its workers."""
 from __future__ import annotations
 
 import inspect
-import json
 import time
 
 import pytest
 
 from portbench import harness
-from portbench.harness import PB, ROOT, Cell, load_module
-from portbench.tests.test_portbench_contract import TESTED, _run, _tiny
+from portbench.harness import ROOT, Cell, load_module
+from portbench.tests.test_portbench_contract import BENCH, CELLS, _run, _tiny
 from portbench.trace import Trace
 
-ROW = "spectral_row4.t4"
-NEW = ["models.demod_sb.state_ms", "models.demod_sb.outputs_ms",
-       "kernels.wrapper_host_us", "parallel.order_ms",
-       "parallel.all_reduce_ms"]
-# the new metrics each one-card cell reports (host times: positive)
-WANT = {
-    "qam16.c4096": ["models.demod_sb.state_ms", "models.demod_sb.outputs_ms",
-                    "kernels.wrapper_host_us"],
-    "spectral.welch4": ["kernels.wrapper_host_us"],
-    "spectral.c256": ["kernels.wrapper_host_us"],
-}
 # portbench/trace.py labels an idle gap with the innermost of the last 8
 # spans started: a step may open 8, its own span included, so that the
 # step's span stays among them at the step's end
 LOOK_BACK = 8
 
 
-def _with_row_spans(bench: dict) -> dict:
-    """The tested entries plus the row cell's span metrics."""
-    kept = json.loads((PB / "tests" / "row_cell_spans.json").read_text())
-    out = dict(bench, per_layer=[dict(m) for m in bench["per_layer"]])
-    for m in out["per_layer"]:
-        m["workloads"] = m["workloads"] + kept["workloads_of"].get(
-            m["name"], [])
-    out["per_layer"] += kept["per_layer"]
-    return out
+def _metrics_of(cell: str, source: str, bench: dict = BENCH) -> list:
+    return [m["name"] for m in Cell(cell, bench).per_layer
+            if m["source"] == source]
 
 
 @pytest.fixture
@@ -52,23 +34,21 @@ def kernel_route(monkeypatch):
     monkeypatch.setattr(fft, "_kernel_eligible", lambda x, axis: True)
 
 
-@pytest.mark.parametrize("cell", list(WANT))
-def test_new_metrics_read_a_traced_tiny_run(kernel_route, cell):
-    got = _run(cell, trace=True)["metrics"]
-    for name in WANT[cell]:
+def reads_its_span_metrics(cell: str, bench: dict = BENCH) -> None:
+    """A traced tiny run of the cell reads a positive number for every
+    ``program_span`` metric listed for it (host times), and nothing for
+    its ``device_trace`` metrics: the CPU runs no kernel (over gloo, a row
+    runs no NCCL kernel either)."""
+    got = _run(cell, trace=True, bench=bench)["metrics"]
+    for name in _metrics_of(cell, "program_span", bench):
         assert name in got and got[name]["value"] > 0, name
+    for name in _metrics_of(cell, "device_trace", bench):
+        assert name not in got, name
 
 
-def test_row_cell_reads_its_wrapper_time_over_gloo():
-    cell = Cell(ROW, _with_row_spans(TESTED), traffic=_tiny(ROW).traffic)
-    assert {"parallel.order_ms", "parallel.all_reduce_ms",
-            "kernels.wrapper_host_us"} <= {m["name"] for m in cell.per_layer}
-    got = harness.run_cell(cell, 12345678901, 0.2, True, time.perf_counter(),
-                           device="cpu", log=lambda s: None)["metrics"]
-    assert got["kernels.wrapper_host_us"]["value"] > 0
-    # gloo runs no NCCL kernel: both parallel metrics stay silent here
-    assert "parallel.order_ms" not in got
-    assert "parallel.all_reduce_ms" not in got
+@pytest.mark.parametrize("cell", CELLS)
+def test_new_metrics_read_a_traced_tiny_run(kernel_route, cell):
+    reads_its_span_metrics(cell)
 
 
 def most_spans_a_step(tr: Trace) -> int:
@@ -78,8 +58,8 @@ def most_spans_a_step(tr: Trace) -> int:
                for n, s, d in tr.spans if n == "portbench.step")
 
 
-# a worker of the row cell whose traced breakdown also says how many spans
-# its steps opened at most
+# a worker of a cell across cards whose traced breakdown also says how many
+# spans its steps opened at most
 _COUNTING_RUN = f"""
 import sys, time
 T0 = time.perf_counter()
@@ -93,24 +73,30 @@ sys.exit(harness.main(sys.argv[1:], T0))
 """
 
 
-@pytest.mark.parametrize("cell", list(WANT) + [ROW])
-def test_a_step_opens_at_most_eight_spans(kernel_route, monkeypatch,
-                                          tmp_path, cell):
+def opens_at_most_eight_spans(cell: str, monkeypatch, tmp_path,
+                              bench: dict = BENCH) -> None:
     """Every span a traced step opens, the harness's and torch's included
-    (on the row cell's workers, gloo's ranges stand in for NCCL's)."""
-    if cell != ROW:
+    (on a row's workers, gloo's ranges stand in for NCCL's)."""
+    c = _tiny(cell, bench)
+    if c.chips == 1:
         plain = Trace.breakdown
         monkeypatch.setattr(Trace, "breakdown", lambda tr: dict(
             plain(tr), most_spans=most_spans_a_step(tr)))
-        counts = [_run(cell, trace=True)["breakdown"]["most_spans"]]
+        counts = [_run(cell, trace=True, bench=bench)["breakdown"]
+                  ["most_spans"]]
     else:
-        row = _tiny(ROW)
         (tmp_path / "run.py").write_text(_COUNTING_RUN)
         monkeypatch.setattr(harness, "PB", tmp_path)
-        parts = harness.spawn_row(row, 12345678901, 0.2, True,
-                                  time.perf_counter(), "cpu", 4)
+        parts = harness.spawn_row(c, 12345678901, 0.2, True,
+                                  time.perf_counter(), "cpu", c.chips)
         counts = [p["breakdown"]["most_spans"] for p in parts]
     assert all(2 <= n <= LOOK_BACK for n in counts), counts
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_a_step_opens_at_most_eight_spans(kernel_route, monkeypatch,
+                                          tmp_path, cell):
+    opens_at_most_eight_spans(cell, monkeypatch, tmp_path)
 
 
 def _trace(spans: list, kernels: list, steps: int) -> Trace:
@@ -138,9 +124,9 @@ def test_new_metrics_by_hand():
 
     def read(name):
         return load_module("metrics", name).read(tr)
-    assert read("parallel.order_ms") == pytest.approx(0.03)
+    # the float32 row sum alone, not the 32-bit words
     assert read("parallel.all_reduce_ms") == pytest.approx(0.015)
-    assert load_module("metrics", "parallel.order_ms").combine(
+    assert load_module("metrics", "parallel.all_reduce_ms").combine(
         [0.1, 0.3, 0.2]) == 0.3
     # the wrappers' own host time: (200 - 60) + 20 us over 2 calls
     assert read("kernels.wrapper_host_us") == pytest.approx(80.0)
@@ -151,8 +137,21 @@ def test_new_metrics_by_hand():
 
 def test_silent_without_the_ports_spans():
     """A port without the spans (the parent of them), or a row without
-    NCCL: every new metric returns None and does not raise."""
+    NCCL: every metric read from spans, and the row sum's, returns None
+    and does not raise."""
     tr = _trace([("portbench.step", 0, 400)],
                 [("void chain_halo_kernel<short>()", 10, 50)], 1)
-    for name in NEW:
+    names = [m["name"] for m in BENCH["per_layer"]
+             if m["source"] == "program_span"]
+    assert names
+    for name in names + ["parallel.all_reduce_ms"]:
         assert load_module("metrics", name).read(tr) is None, name
+
+
+@pytest.mark.parametrize("metric", [m["name"] for m in BENCH["per_layer"]])
+def test_every_metric_is_silent_with_nothing_to_read(metric):
+    """A step with no span of the port and no device activity: each
+    per-layer metric's reader returns None (it never reads 0 for a share
+    of a roofline or of the window)."""
+    tr = _trace([("portbench.step", 0, 400)], [], 1)
+    assert load_module("metrics", metric).read(tr) is None
